@@ -11,10 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvcc``, its build seconds and ``-Xptxas -v`` report;
 3. each CUDA kernel against its plain PyTorch version on the card, at
    8192x8192 and a ragged 1000x1000, over the reference tests' configs plus
-   a large-tile and a clamped-duplicate config;
+   a large-tile and a clamped-duplicate config, with the count of elements
+   that differ at all (mandelbrot's gate allows some; its design needs none);
 4. the main path: ``repro_torch.tune(TuningSpec(kernel=k, backend="cuda"))``
    at 8192x8192 for add, harris and mandelbrot (GA) and add (RS), each with
-   the launch counts set to 0 just before and read just after;
+   the launch counts set to 0 just before and read just after, then each GA
+   winner and the default config re-timed by the tuner's own timer;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound);
@@ -40,6 +42,7 @@ CONFIGS = [
     dict(t_x=16, t_y=16, t_z=16),
     dict(t_x=3, t_y=3, t_z=5, w_x=7, w_y=5),   # clamped duplicate blocks
 ]
+DEFAULT_CONFIG = dict(t_x=1, t_y=1, t_z=1, w_x=1, w_y=1, w_z=1)   # what {} means
 MAIN_PATH = [("add", "ga"), ("harris", "ga"), ("mandelbrot", "ga"), ("add", "rs")]
 BUDGET = 40
 
@@ -92,9 +95,10 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels() -> dict:
+def check_kernels() -> tuple[dict, dict]:
     """Phase 3: every kernel against its plain version on the card.
-    Returns the largest |kernel - plain| per kernel at the main path's shape."""
+    Returns, per kernel at the main path's shape and over the configs, the
+    largest |kernel - plain| and the most elements that differ at all."""
     import torch
 
     import repro_torch.kernels as K
@@ -102,6 +106,7 @@ def check_kernels() -> dict:
     before = {k: c.n for k, c in K.LAUNCHES.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {"add": 0.0, "harris": 0.0, "mandelbrot": 0.0}
+    n_diff = {"add": 0, "harris": 0, "mandelbrot": 0}
     for x, y in SHAPES:
         a = torch.randn((x, y), generator=gen, device="cuda")
         b = torch.randn((x, y), generator=gen, device="cuda")
@@ -131,6 +136,9 @@ def check_kernels() -> dict:
                 max_err["add"] = max(max_err["add"], err)
                 max_err["harris"] = max(max_err["harris"], h_err)
                 max_err["mandelbrot"] = max(max_err["mandelbrot"], m_err)
+                for k, d in (("add", out != ref_add), ("harris", h != ref_h),
+                             ("mandelbrot", m_diff != 0)):
+                    n_diff[k] = max(n_diff[k], int(d.sum().item()))
             print(f"check {x}x{y} {json.dumps(cfg, sort_keys=True)}: add exact (f32, bf16); "
                   f"harris rel {rel:.3e} < 1e-5; mandelbrot exact {exact:.6f} >= 0.995, "
                   f"max|d| {m_err:g} <= 4")
@@ -138,18 +146,22 @@ def check_kernels() -> dict:
         torch.cuda.empty_cache()
     for k, c in K.LAUNCHES.items():
         require(c.n > before[k], f"{k}: launch counter did not move during the checks")
-    return max_err
+    print(f"check {SHAPES[0][0]}x{SHAPES[0][1]}: most differing elements {n_diff}")
+    return max_err, n_diff
 
 
 def run_main_path() -> dict:
     """Phase 4: the tuning loop through the public entry point, with the
-    launch counts set to 0 just before each run and read just after."""
+    launch counts set to 0 just before each run and read just after.  For
+    each GA run, afterwards: whether the default config was among the
+    samples, and the winner and the default re-measured one after the other
+    by the tuner's own timer (host clock around launch + synchronize)."""
     import torch
 
     from repro_torch import TuningSession, TuningSpec
     from repro_torch.kernels import LAUNCHES
 
-    winners, counted = {}, {k: 0 for k in LAUNCHES}
+    winners, tuner, counted = {}, {}, {k: 0 for k in LAUNCHES}
     for kernel, searcher in MAIN_PATH:
         session = TuningSession(TuningSpec(kernel=kernel, backend="cuda", searcher=searcher,
                                            budget=BUDGET, seed=0))
@@ -174,7 +186,19 @@ def run_main_path() -> dict:
         counted[kernel] += got[kernel]
         if searcher == "ga":
             winners[kernel] = result.best_config
-    return {"winners": winners, "launches": counted}
+            sampled = [v for c, v in zip(result.history_configs, result.history_values)
+                       if dict(c) == DEFAULT_CONFIG]
+            m = session.measurement
+            tuner[kernel] = dict(
+                final_ms=result.final_value * 1e3,
+                default_sampled=bool(sampled),
+                default_sampled_ms=sampled[0] * 1e3 if sampled else None,
+                host_ms_winner=m.measure_final(result.best_config, repeats=10) * 1e3,
+                host_ms_default=m.measure_final(DEFAULT_CONFIG, repeats=10) * 1e3,
+            )
+            print(f"tune {kernel}/{searcher} afterwards: "
+                  + " ".join(f"{k}={v!r}" for k, v in tuner[kernel].items()))
+    return {"winners": winners, "tuner": tuner, "launches": counted}
 
 
 def time_kernels(winners: dict) -> dict:
@@ -264,7 +288,7 @@ def main() -> int:
         print(f"smem {name}: compiled {smem} B, screened {bench.smem_bytes} B")
         require(smem <= bench.smem_bytes, f"{name}: compiled smem {smem} > screened")
 
-    max_err = check_kernels()                         # 3.
+    max_err, n_diff = check_kernels()                 # 3.
     main_path = run_main_path()                       # 4.
     times = time_kernels(main_path["winners"])        # 5.
 
@@ -276,10 +300,12 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": main_path["launches"][name], "max_abs_err": max_err[name],
+            "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_default": t["ms_default"],
-            "tuned_config": main_path["winners"][name], "status": "ok",
+            "tuned_config": main_path["winners"][name], "tuner": main_path["tuner"][name],
+            "status": "ok",
         })
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": rows}))

@@ -89,15 +89,16 @@ def _resolve_constraint(cid: str | None) -> Callable[[Config], bool] | None:
         return CONSTRAINTS[cid]
     if cid.startswith("cuda_fit:"):
         # cuda_fit:<kernel>:<x>:<y>:<smem_limit>:<max_grid> — the measurement
-        # backend's validity pre-screen as a named constraint
+        # backend's validity pre-screen as a named constraint; the limits are
+        # the card's fixed figures, so an id naming others cannot be rebuilt
         from ..cuda_bench import fit_constraint, make_workload
 
-        _, kernel, x, y, smem_limit, max_grid = cid.split(":")
-        return fit_constraint(
-            make_workload(kernel, x=int(x), y=int(y)),
-            int(smem_limit),
-            int(max_grid),
-        )
+        _, kernel, x, y, *_limits = cid.split(":")
+        fn = fit_constraint(make_workload(kernel, x=int(x), y=int(y)))
+        if fn.constraint_id != cid:
+            raise KeyError(f"constraint {cid!r} names other limits than "
+                           f"{fn.constraint_id!r}")
+        return fn
     raise KeyError(
         f"unknown constraint id {cid!r}; register it with "
         f"repro_torch.core.api.register_constraint(name, fn)"

@@ -57,19 +57,10 @@ def _make_cuda(
     input_seed: int = 0,
     repeats: int = 5,
     warmup: int = 1,
-    smem_limit: int | None = None,
-    max_grid: int | None = None,
     device: str = "cuda",
 ) -> BaseMeasurement:
     # lazy import: core stays importable without the kernel packages
-    from ..cuda_bench import (
-        DEFAULT_MAX_GRID,
-        DEFAULT_SMEM_LIMIT,
-        DEFAULT_X,
-        DEFAULT_Y,
-        CudaMeasurement,
-        make_workload,
-    )
+    from ..cuda_bench import DEFAULT_X, DEFAULT_Y, CudaMeasurement, make_workload
 
     workload = make_workload(
         kernel,
@@ -77,31 +68,14 @@ def _make_cuda(
         y=y if y is not None else DEFAULT_Y,
         input_seed=input_seed,
     )
-    return CudaMeasurement(
-        workload,
-        repeats=repeats,
-        warmup=warmup,
-        smem_limit=smem_limit if smem_limit is not None else DEFAULT_SMEM_LIMIT,
-        max_grid=max_grid if max_grid is not None else DEFAULT_MAX_GRID,
-        device=device,
-    )
+    return CudaMeasurement(workload, repeats=repeats, warmup=warmup, device=device)
 
 
 def _cuda_space(kernel: str = "add", **kwargs) -> SearchSpace:
-    from ..cuda_bench import (
-        DEFAULT_MAX_GRID,
-        DEFAULT_SMEM_LIMIT,
-        DEFAULT_X,
-        DEFAULT_Y,
-        default_space,
-    )
+    from ..cuda_bench import DEFAULT_X, DEFAULT_Y, default_space
 
     return default_space(
-        kernel,
-        x=kwargs.get("x") or DEFAULT_X,
-        y=kwargs.get("y") or DEFAULT_Y,
-        smem_limit=kwargs.get("smem_limit") or DEFAULT_SMEM_LIMIT,
-        max_grid=kwargs.get("max_grid") or DEFAULT_MAX_GRID,
+        kernel, x=kwargs.get("x") or DEFAULT_X, y=kwargs.get("y") or DEFAULT_Y
     )
 
 

@@ -15,20 +15,12 @@ Layout:
 
 from ..core.space import Param, SearchSpace
 from .measure import CudaMeasurement
-from .validity import (
-    DEFAULT_MAX_GRID,
-    DEFAULT_SMEM_LIMIT,
-    InvalidMeasurement,
-    fit_constraint,
-    validate_config,
-)
+from .validity import InvalidMeasurement, fit_constraint, validate_config
 from .workloads import DEFAULT_X, DEFAULT_Y, CudaWorkload, make_workload
 
 __all__ = [
     "CudaMeasurement",
     "CudaWorkload",
-    "DEFAULT_MAX_GRID",
-    "DEFAULT_SMEM_LIMIT",
     "DEFAULT_X",
     "DEFAULT_Y",
     "InvalidMeasurement",
@@ -43,8 +35,6 @@ def default_space(
     kernel: str = "add",
     x: int = DEFAULT_X,
     y: int = DEFAULT_Y,
-    smem_limit: int = DEFAULT_SMEM_LIMIT,
-    max_grid: int = DEFAULT_MAX_GRID,
     **_,
 ) -> SearchSpace:
     """The paper's 6-parameter space constrained to runnable geometries
@@ -58,6 +48,4 @@ def default_space(
         Param.int_range("w_y", 1, 8),
         Param.int_range("w_z", 1, 8),
     ]
-    return SearchSpace(
-        params, constraint=fit_constraint(workload, smem_limit, max_grid)
-    )
+    return SearchSpace(params, constraint=fit_constraint(workload))

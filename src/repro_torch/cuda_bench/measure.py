@@ -16,7 +16,12 @@ wall-clock into provenance:
   per-geometry cache holds is therefore a geometry's *warmed* runner: a
   cache fill is a geometry's first warmed launch, and ``n_compiles`` counts
   those fills.  Configs differing only in ``w_z`` share one entry.  A
-  refused launch becomes a ``compile``-stage penalty.
+  launch refused for its geometry (:data:`~repro_torch.kernels._build.CONFIG_ERRORS`)
+  becomes a ``compile``-stage penalty.  Anything else would fail every
+  config alike and raises: the library is built in the constructor, so a
+  missing ``nvcc`` or a failed build raises there, and a launch error of
+  another kind, or one after which the device no longer synchronises,
+  raises from the measurement.
 * **warmup + N-repeat timing** — every measurement runs ``warmup`` fenced
   calls (the fill counts as the first), then ``repeats`` timed calls, each
   fenced INSIDE the timed region: host clock around the launch and
@@ -40,14 +45,9 @@ import torch
 from ..core.clock import monotonic
 from ..core.engine import config_key
 from ..core.measurement import BaseMeasurement, StageClock, fence
-from ..kernels import LAUNCHES
+from ..kernels import LAUNCHES, _build
 from ..kernels.common import Config, geometry_from_config
-from .validity import (
-    DEFAULT_MAX_GRID,
-    DEFAULT_SMEM_LIMIT,
-    InvalidMeasurement,
-    validate_config,
-)
+from .validity import InvalidMeasurement, validate_config
 from .workloads import CudaWorkload
 
 
@@ -68,7 +68,8 @@ def resolve_device(device) -> torch.device:
 
 
 class CudaMeasurement(BaseMeasurement):
-    """Measures real kernel time; never raises on a bad config.
+    """Measures real kernel time; never raises on a bad config, always on a
+    fault that no config causes.
 
     ``timer`` is the timing-stage clock (default: the injectable
     monotonic seam in :mod:`repro_torch.core.clock`).
@@ -80,8 +81,6 @@ class CudaMeasurement(BaseMeasurement):
         *,
         repeats: int = 5,
         warmup: int = 1,
-        smem_limit: int = DEFAULT_SMEM_LIMIT,
-        max_grid: int = DEFAULT_MAX_GRID,
         timer: Callable[[], float] | None = None,
         device="cuda",
     ):
@@ -89,11 +88,11 @@ class CudaMeasurement(BaseMeasurement):
         if repeats < 1:
             raise ValueError("repeats must be >= 1")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            _build.library()  # a build that fails fails every config: raise now
         self.workload = workload
         self.repeats = int(repeats)
         self.warmup = int(warmup)
-        self.smem_limit = int(smem_limit)
-        self.max_grid = int(max_grid)
         self._timer = timer if timer is not None else monotonic
         #: per-stage wall-clock (screen / compile / time / record), per run
         self.clock = StageClock()
@@ -119,9 +118,17 @@ class CudaMeasurement(BaseMeasurement):
         g = geometry_from_config(cfg)
         return (g.bm, g.bn, g.tz, g.wx, g.wy)
 
+    def _penalty(self, e: Exception, stage: str) -> InvalidMeasurement:
+        """The penalty for a launch refused because of its config; re-raise
+        any other error, and a refusal that left the device unusable."""
+        if not (isinstance(e, _build.LaunchError) and e.config_dependent):
+            raise e
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # a sticky fault raises here
+        return InvalidMeasurement(reason=f"{type(e).__name__}: {e}", stage=stage)
+
     def _compile_now(self, cfg: Config, gkey: tuple) -> Callable | InvalidMeasurement:
-        """Warm cfg's geometry (the library builds on the first call of the
-        process) and cache its runner."""
+        """Warm cfg's geometry and cache its runner."""
         if self._inputs is None:
             self._inputs = self.workload.materialize(self.device)
         inputs = self._inputs
@@ -136,8 +143,8 @@ class CudaMeasurement(BaseMeasurement):
         try:
             for _ in range(max(1, self.warmup)):
                 fence(fn())
-        except RuntimeError as e:  # a refused launch is a penalty, not a crash
-            bad = InvalidMeasurement(reason=f"{type(e).__name__}: {e}", stage="compile")
+        except RuntimeError as e:  # a refused geometry is a penalty, not a crash
+            bad = self._penalty(e, "compile")
             self._compiled[gkey] = bad
             return bad
         self._compiled[gkey] = fn
@@ -147,9 +154,7 @@ class CudaMeasurement(BaseMeasurement):
     def _stage_screen(self, config: Config) -> InvalidMeasurement | None:
         """Validity pre-screen; ``None`` means the config may launch."""
         with self.clock.stage("screen"):
-            reason = validate_config(
-                self.workload, config, self.smem_limit, self.max_grid
-            )
+            reason = validate_config(self.workload, config)
         if reason is None:
             return None
         return InvalidMeasurement(reason=reason, stage="validity")
@@ -171,10 +176,8 @@ class CudaMeasurement(BaseMeasurement):
                     t0 = self._timer()
                     fence(fn())
                     times.append(self._timer() - t0)
-                except RuntimeError as e:  # a fault during the run -> penalty
-                    return InvalidMeasurement(
-                        reason=f"{type(e).__name__}: {e}", stage="run"
-                    )
+                except RuntimeError as e:  # a refused geometry -> penalty
+                    return self._penalty(e, "run")
         return times
 
     def _stage_record(
@@ -261,9 +264,7 @@ class CudaMeasurement(BaseMeasurement):
             "launches": LAUNCHES[self.workload.name].n,
         }
         if on_card:
-            from ..kernels._build import library
-
-            lib = library()
+            lib = _build.library()
             prov.update(
                 device_kind=torch.cuda.get_device_name(self.device),
                 capability=list(torch.cuda.get_device_capability(self.device)),

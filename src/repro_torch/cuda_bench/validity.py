@@ -9,11 +9,14 @@ TPU's).
   to CUDA's limits (gridDim.x <= 2^31-1 tile columns, gridDim.y <= 65535
   tile rows) instead of the reference's cap of 65536 steps in all; the
   memory rule holds the kernel's own shared memory per block against the
-  227 KB a Hopper block can use.
+  227 KB a Hopper block can use.  Both limits are the one supported card's
+  fixed figures (:data:`SMEM_LIMIT`, :data:`MAX_GRID_Y`, :data:`MAX_GRID_X`),
+  not options.
 * :class:`InvalidMeasurement` is the penalty record a failing config maps
   to, with the reference's meta format ``<stage>:<reason>``.
 * :func:`fit_constraint` packages the pre-screen as a *named* SearchSpace
-  constraint, stable id ``cuda_fit:<kernel>:<x>:<y>:<smem>:<grid>``, which
+  constraint, stable id ``cuda_fit:<kernel>:<x>:<y>:<smem>:<grid>`` (the
+  limits it screens against are part of the name), which
   :func:`repro_torch.core.api._resolve_constraint` rebuilds by name.
 """
 
@@ -32,9 +35,9 @@ from ..kernels.common import (
 from .workloads import CudaWorkload
 
 #: shared memory one block may use on Hopper (sm_90, opt-in maximum)
-DEFAULT_SMEM_LIMIT = 232448
+SMEM_LIMIT = 232448
 #: CUDA's limit on gridDim.y, which carries the tile rows
-DEFAULT_MAX_GRID = 65535
+MAX_GRID_Y = 65535
 #: CUDA's limit on gridDim.x, which carries the tile columns
 MAX_GRID_X = 2**31 - 1
 SUBLANES = 8    # f32 min tile rows
@@ -68,8 +71,6 @@ def validate_geometry(
     g: KernelGeometry,
     x: int,
     y: int,
-    smem_limit: int = DEFAULT_SMEM_LIMIT,
-    max_grid: int = DEFAULT_MAX_GRID,
 ) -> str | None:
     """Reason the geometry cannot run on problem (x, y), or None if it can.
 
@@ -89,42 +90,28 @@ def validate_geometry(
             f"block:({g.rows_step},{g.bn}) exceeds padded image ({x_pad},{y_pad})"
         )
     grid_r, grid_c = launch_plan(g, x, y).grid
-    if grid_r > max_grid or grid_c > MAX_GRID_X:
-        return f"grid:({grid_r},{grid_c}) blocks > ({max_grid},{MAX_GRID_X})"
-    if bench.smem_bytes > smem_limit:
-        return f"smem:{bench.smem_bytes} bytes > {smem_limit}"
+    if grid_r > MAX_GRID_Y or grid_c > MAX_GRID_X:
+        return f"grid:({grid_r},{grid_c}) blocks > ({MAX_GRID_Y},{MAX_GRID_X})"
+    if bench.smem_bytes > SMEM_LIMIT:
+        return f"smem:{bench.smem_bytes} bytes > {SMEM_LIMIT}"
     return None
 
 
-def validate_config(
-    workload: CudaWorkload,
-    cfg: Config,
-    smem_limit: int = DEFAULT_SMEM_LIMIT,
-    max_grid: int = DEFAULT_MAX_GRID,
-) -> str | None:
+def validate_config(workload: CudaWorkload, cfg: Config) -> str | None:
     """Pre-screen one config against a workload; reason string or None."""
     return validate_geometry(
-        workload.bench,
-        geometry_from_config(cfg),
-        workload.x,
-        workload.y,
-        smem_limit=smem_limit,
-        max_grid=max_grid,
+        workload.bench, geometry_from_config(cfg), workload.x, workload.y
     )
 
 
-def fit_constraint(
-    workload: CudaWorkload,
-    smem_limit: int = DEFAULT_SMEM_LIMIT,
-    max_grid: int = DEFAULT_MAX_GRID,
-):
+def fit_constraint(workload: CudaWorkload):
     """The pre-screen as a named SearchSpace constraint predicate."""
 
     def fn(cfg: Config) -> bool:
-        return validate_config(workload, cfg, smem_limit, max_grid) is None
+        return validate_config(workload, cfg) is None
 
     fn.constraint_id = (
         f"cuda_fit:{workload.name}:{workload.x}:{workload.y}"
-        f":{smem_limit}:{max_grid}"
+        f":{SMEM_LIMIT}:{MAX_GRID_Y}"
     )
     return fn

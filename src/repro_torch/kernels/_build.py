@@ -154,13 +154,31 @@ def library() -> KernelLibrary:
         return lib
 
 
+#: launch errors that depend on the launch's geometry or resources, and so on
+#: the config (cudaErrorInvalidConfiguration, cudaErrorLaunchOutOfResources);
+#: they leave the context usable.  Every other code does not depend on it.
+CONFIG_ERRORS = frozenset({9, 701})
+
+
+class LaunchError(RuntimeError):
+    """A launcher returned a CUDA error code other than cudaSuccess."""
+
+    def __init__(self, name: str, code: int, msg: str):
+        super().__init__(f"{name}: CUDA launch failed with error {code} ({msg})")
+        self.code = code
+
+    @property
+    def config_dependent(self) -> bool:
+        return self.code in CONFIG_ERRORS
+
+
 def launch(name: str, *args) -> None:
-    """Call one exported launcher; raise if the launch was refused."""
+    """Call one exported launcher; raise :class:`LaunchError` if the launch
+    was refused."""
     lib = library().cdll
     err = getattr(lib, name)(*args)
     if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")
+        raise LaunchError(name, err, lib.repro_cuda_error_string(err).decode())
 
 
 def kernel_smem_bytes(kernel: str) -> int:

@@ -3,6 +3,7 @@ reference's (``repro.pallas_bench``): byte-identical workload inputs, the
 same penalty meta format, the same pre-screen verdicts at a small problem,
 and the measurement protocol on the CPU."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -21,8 +22,9 @@ from repro_torch.cuda_bench import (
     make_workload,
     validate_config,
 )
-from repro_torch.cuda_bench.validity import DEFAULT_MAX_GRID, validate_geometry
-from repro_torch.kernels import KERNEL_BENCHES
+from repro_torch.cuda_bench import measure as measure_mod
+from repro_torch.cuda_bench.validity import MAX_GRID_Y, SMEM_LIMIT, validate_geometry
+from repro_torch.kernels import KERNEL_BENCHES, _build
 from repro_torch.kernels.common import KernelGeometry
 
 
@@ -81,8 +83,9 @@ def test_validity_rules_in_reference_order():
     # 8192 tile rows per region split x 8 splits > gridDim.y's 65535
     reason = validate_geometry(bench, KernelGeometry(8, 128, 1, 8, 1, 1), 8 * 65535, 128)
     assert reason.startswith("grid:")
-    assert validate_geometry(bench, KernelGeometry(8, 128, 1, 1, 1, 1), 64, 128,
-                             smem_limit=1024).startswith("smem:")
+    too_much_smem = dataclasses.replace(bench, smem_bytes=SMEM_LIMIT + 1)
+    assert validate_geometry(too_much_smem, KernelGeometry(8, 128, 1, 1, 1, 1),
+                             64, 128).startswith("smem:")
     assert validate_geometry(bench, KernelGeometry(8, 128, 1, 1, 1, 1), 64, 128) is None
 
 
@@ -91,7 +94,7 @@ def test_default_space_constraint_id_round_trips():
 
     space = default_space("harris", x=64, y=256)
     cid = space.constraint.constraint_id
-    assert cid == f"cuda_fit:harris:64:256:232448:{DEFAULT_MAX_GRID}"
+    assert cid == f"cuda_fit:harris:64:256:232448:{MAX_GRID_Y}"
     spec = TuningSpec(kernel="harris", backend="cuda", space=space, budget=4,
                       backend_kwargs={"x": 64, "y": 256, "device": "cpu"})
     back = TuningSpec.from_json(spec.to_json())
@@ -129,3 +132,48 @@ def test_cpu_measurement_protocol():
     assert validate_config(m.workload, bad) is not None
     m.reset()
     assert m.n_samples == 0 and m.n_compiles == 1 and m.run_compiles == 0
+
+
+def test_a_failed_build_raises_from_tune(monkeypatch):
+    """The library builds when a card measurement is made: no nvcc fails the
+    run instead of penalising every config."""
+    from repro_torch import TuningSpec, tune
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(measure_mod, "resolve_device", lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr(_build, "_loaded", [])
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    spec = TuningSpec(kernel="add", backend="cuda", searcher="rs", budget=4,
+                      backend_kwargs={"x": 64, "y": 128})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tune(spec)
+
+
+def _faulty_measurement(code: int) -> CudaMeasurement:
+    def run(inputs, cfg, x, y, device):
+        if cfg.get("t_x") == 2:
+            raise _build.LaunchError("repro_add_f32", code, "injected")
+        return inputs[0] + inputs[1]
+
+    bench = dataclasses.replace(KERNEL_BENCHES["add"], run=run)
+    workload = dataclasses.replace(make_workload("add", 64, 128), bench=bench)
+    return CudaMeasurement(workload, repeats=2, device="cpu")
+
+
+@pytest.mark.parametrize("code", sorted(_build.CONFIG_ERRORS))
+def test_a_launch_refused_for_its_geometry_is_a_penalty(code):
+    m = _faulty_measurement(code)
+    refused, fine = dict(t_x=2), dict(t_x=1)
+    vals = m.measure_batch([refused, fine])
+    assert math.isinf(vals[0]) and math.isfinite(vals[1])
+    assert m.reason_for(refused).startswith("compile:LaunchError:")
+    assert m.provenance()["n_invalid"] == 1
+
+
+@pytest.mark.parametrize("code", [2, 700, 999])  # out of memory, illegal address, unknown
+def test_a_fault_no_config_causes_raises(code):
+    m = _faulty_measurement(code)
+    with pytest.raises(_build.LaunchError, match=f"error {code} "):
+        m.measure_batch([dict(t_x=1), dict(t_x=2)])
