@@ -3,6 +3,9 @@
 ``add(a, b, config)`` takes the paper's 6-param config (a missing param is
 1).  On CUDA tensors it launches the hand-written kernel, and raises if the
 launch is refused; on CPU tensors it computes the plain version ``add_ref``.
+The kernel moves 16 bytes per access where every row starts 16-byte
+aligned (:func:`vector_path`) and one element per access elsewhere; both
+paths are the same launch.
 """
 
 from __future__ import annotations
@@ -33,6 +36,23 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("add: inputs must be contiguous")
 
 
+def vector_path(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the kernel may move 16 bytes per access: every row of the
+    three (contiguous) arrays starts 16-byte aligned, so all three pointers
+    are aligned and a row holds a whole number of 16-byte vectors."""
+    per_vector = 16 // a.element_size()
+    return (a.shape[-1] % per_vector == 0
+            and all(t.data_ptr() % 16 == 0 for t in (a, b, out)))
+
+
+def launch_args(x: int, y: int, config: Config | None, vector: bool) -> tuple[int, ...]:
+    """The integer arguments of ``repro_add_*`` between the pointers and the
+    device: the image, the launch plan of ``config`` and the path."""
+    plan = launch_plan(geometry_from_config(config or {}), x, y)
+    return (x, y, plan.bm, plan.tz, plan.cols, plan.nblk_r, plan.nblk_c,
+            *plan.grid, int(vector))
+
+
 def add(a: torch.Tensor, b: torch.Tensor, config: Config | None = None) -> torch.Tensor:
     """Tunable-config elementwise add: config holds the paper's 6 params."""
     _check(a, b)
@@ -40,13 +60,11 @@ def add(a: torch.Tensor, b: torch.Tensor, config: Config | None = None) -> torch
         return add_ref(a, b)
     if not a.is_cuda:
         raise ValueError(f"add: unsupported device {a.device}")
-    x, y = a.shape
-    plan = launch_plan(geometry_from_config(config or {}), x, y)
     out = torch.empty_like(a)
     launch(
         _LAUNCHERS[a.dtype],
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), x, y,
-        plan.bm, plan.tz, plan.cols, plan.nblk_r, plan.nblk_c, *plan.grid,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *launch_args(*a.shape, config, vector_path(a, b, out)),
         a.device.index, torch.cuda.current_stream(a.device).cuda_stream,
     )
     launches.add()

@@ -17,6 +17,22 @@ from .ref import MAX_ITER, VIEW, mandelbrot_ref
 launches = LaunchCounter()
 
 
+def launch_args(x: int, y: int, config: Config | None, max_iter: int = MAX_ITER) -> tuple:
+    """The arguments of ``repro_mandelbrot_f32`` between the output pointer
+    and the device: the image, the launch plan of ``config``, the trip
+    count and the view."""
+    plan = launch_plan(geometry_from_config(config or {}), x, y)
+    xmin, xmax, ymin, ymax = VIEW
+    return (
+        x, y, plan.bm, plan.tz, plan.cols, plan.nblk_r, plan.nblk_c, *plan.grid,
+        int(max_iter),
+        # the view's steps in f32, as the reference's weak-typed
+        # python floats meet its f32 iota
+        float(np.float32(xmin)), float(np.float32(ymin)),
+        float(np.float32((xmax - xmin) / y)), float(np.float32((ymax - ymin) / x)),
+    )
+
+
 def mandelbrot(x: int, y: int, config: Config | None = None,
                max_iter: int = MAX_ITER, device="cuda") -> torch.Tensor:
     device = torch.device(device)
@@ -28,17 +44,9 @@ def mandelbrot(x: int, y: int, config: Config | None = None,
         raise ValueError(f"mandelbrot: unsupported device {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    plan = launch_plan(geometry_from_config(config or {}), x, y)
-    xmin, xmax, ymin, ymax = VIEW
     out = torch.empty((x, y), dtype=torch.float32, device=device)
     launch(
-        "repro_mandelbrot_f32",
-        out.data_ptr(), x, y, plan.bm, plan.tz, plan.cols,
-        plan.nblk_r, plan.nblk_c, *plan.grid, int(max_iter),
-        # the view's steps in f32, as the reference's weak-typed
-        # python floats meet its f32 iota
-        float(np.float32(xmin)), float(np.float32(ymin)),
-        float(np.float32((xmax - xmin) / y)), float(np.float32((ymax - ymin) / x)),
+        "repro_mandelbrot_f32", out.data_ptr(), *launch_args(x, y, config, max_iter),
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     launches.add()

@@ -20,6 +20,7 @@ from repro_torch.kernels import (
     mandelbrot,
     mandelbrot_ref,
 )
+from repro_torch.kernels.add.ops import vector_path
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +31,8 @@ CONFIGS = [
     dict(t_x=4, t_y=1, t_z=1, w_x=1, w_y=4, w_z=4),
     dict(t_x=3, t_y=3, t_z=5, w_x=7, w_y=5),
 ]
-SHAPES = [(64, 128), (56, 200), (1000, 1000), (2048, 4096)]
+#: widths 129 and 1001 take no 16-byte vector, so add runs its scalar path there
+SHAPES = [(64, 128), (56, 200), (1000, 1000), (2048, 4096), (37, 129), (1000, 1001)]
 
 
 @pytest.fixture
@@ -44,15 +46,21 @@ def card():
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("cfg", CONFIGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_add_is_exact(card, shape, cfg, dtype):
+@pytest.mark.parametrize("offset", [False, True])
+def test_cuda_add_is_exact(card, shape, cfg, dtype, offset):
     gen = torch.Generator(device=card).manual_seed(0)
     a = torch.randn(shape, generator=gen, device=card).to(dtype)
     b = torch.randn(shape, generator=gen, device=card).to(dtype)
+    ref = add_ref(a, b)
+    if offset:
+        # contiguous, one element past an aligned allocation: the scalar path
+        a = torch.empty(a.numel() + 1, dtype=dtype, device=card)[1:].view(shape).copy_(a)
+        assert not vector_path(a, b, torch.empty_like(b))
     before = LAUNCHES["add"].n
     out = add(a, b, cfg)
     torch.cuda.synchronize()
     assert LAUNCHES["add"].n == before + 1
-    assert torch.equal(out, add_ref(a, b))
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -70,9 +78,15 @@ def test_cuda_harris_matches_plain(card, shape, cfg):
 def test_cuda_mandelbrot_matches_plain(card, shape, cfg):
     out = mandelbrot(*shape, cfg, device=card)
     ref = mandelbrot_ref(*shape, device=card)
-    diff = (out - ref).abs()
-    assert (diff == 0).float().mean().item() >= 0.995
-    assert diff.max().item() <= 4
+    # the kernel rounds every operation as the plain version does: exact
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("max_iter", [1, 7, 12, 60, 100])
+def test_cuda_mandelbrot_trip_counts_off_the_block_are_exact(card, max_iter):
+    # a first block of 4 trips, blocks of 8, the trips left over one at a time
+    out = mandelbrot(333, 517, {}, max_iter=max_iter, device=card)
+    assert torch.equal(out, mandelbrot_ref(333, 517, max_iter, device=card))
 
 
 def test_cuda_wrapper_raises_on_refused_launch(card):
