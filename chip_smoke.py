@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
    mandelbrot also at the card's unfused f32 rate, since every operation
-   of the kernel rounds on its own);
+   of the kernel rounds on its own); for add also its vector and scalar
+   paths on the same aligned inputs, in turns;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 """
 
@@ -99,6 +100,23 @@ def wide_accesses(lib_path: str, nvcc: str) -> dict:
             for op in counts[name]:
                 counts[name][op] += op in line
     return counts
+
+
+def time_ms(fn, n: int, warmup: int = 2) -> float:
+    """Mean device time of one call over ``n`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -234,13 +252,50 @@ def run_main_path() -> dict:
     return {"winners": winners, "tuner": tuner, "launches": counted}
 
 
+def time_add_paths(a, b, winner: dict) -> dict:
+    """add's vector and scalar paths on the same aligned inputs, each launched
+    through its C entry point (uncounted: these launches are not the main
+    path's) and held to the plain version, then timed in turns: vector,
+    scalar, scalar, vector; at the default tile, at t_x=4 t_z=2, at the GA
+    winner, and in bf16 at the default tile."""
+    import torch
+
+    import repro_torch.kernels as K
+    from repro_torch.kernels._build import launch
+    from repro_torch.kernels.add.ops import launch_args, vector_path
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def on_path(p, q, cfg: dict, vector: bool):
+        out = torch.empty_like(p)
+        launch("repro_add_bf16" if p.dtype == torch.bfloat16 else "repro_add_f32",
+               p.data_ptr(), q.data_ptr(), out.data_ptr(),
+               *launch_args(*p.shape, cfg, vector), p.device.index, stream)
+        return out
+
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    cases = {"f32 default": (a, b, {}), "f32 t_x=4 t_z=2": (a, b, dict(t_x=4, t_z=2)),
+             "f32 winner": (a, b, winner), "bf16 default": (a16, b16, {})}
+    out = {}
+    for label, (p, q, cfg) in cases.items():
+        require(vector_path(p, q, torch.empty_like(p)), f"add {label}: inputs not aligned")
+        ref = K.add_ref(p, q)
+        ms = {"vector": [], "scalar": []}
+        for path in ms:
+            require(torch.equal(on_path(p, q, cfg, path == "vector"), ref),
+                    f"add {label}, {path} path")
+        for path in ("vector", "scalar", "scalar", "vector"):
+            ms[path].append(time_ms(lambda v=path == "vector": on_path(p, q, cfg, v), 50))
+        out[label] = ms
+    return out
+
+
 def time_kernels(winners: dict) -> dict:
     """Phase 5: device times at the main path's shape, each tuned winner
     checked once more against the plain version first."""
     import torch
 
     import repro_torch.kernels as K
-    from repro_torch.cuda_bench.events import time_ms
     from repro_torch.kernels.mandelbrot.ref import MAX_ITER
 
     x, y = SHAPES[0]
@@ -262,7 +317,8 @@ def time_kernels(winners: dict) -> dict:
         ms_default_offset_input=time_ms(lambda: K.add(a_off, b), 50),
         plain_ms=time_ms(lambda: K.add_ref(a, b), 50),
         library_ms=time_ms(lambda: torch.add(a, b), 50),
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by,
+        paths_ms=time_add_paths(a, b, win))
 
     win = winners["harris"]
     ref = K.harris_ref(img)
@@ -279,10 +335,13 @@ def time_kernels(winners: dict) -> dict:
     win = winners["mandelbrot"]
     counts = K.mandelbrot(x, y, win, device="cuda")
     require(torch.equal(counts, K.mandelbrot_ref(x, y, device="cuda")), "mandelbrot winner")
-    # 10 f32 operations per trip a pixel is alive, 4 for the test it escapes on
+    # what the function needs, not what this kernel issues: 7 f32 operations
+    # per trip a pixel is alive (zr*zr, zi*zi, their difference, + cre,
+    # 2*zr, * zi, + cim) and 4 for the test an escaping pixel fails (its two
+    # squares, their sum, the compare)
     alive_trips = counts.double().sum().item()
     escaped = (counts < MAX_ITER).sum().item()
-    ops = 10 * alive_trips + 4 * escaped
+    ops = 7 * alive_trips + 4 * escaped
     bms, by = bound(4 * n, ops)
     out["mandelbrot"] = dict(
         ms=time_ms(lambda: K.mandelbrot(x, y, win, device="cuda"), 20),
@@ -348,7 +407,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_default": t["ms_default"],
-            **{k: t[k] for k in ("ms_default_offset_input", "bound_unfused_ms") if k in t},
+            **{k: t[k] for k in ("ms_default_offset_input", "paths_ms", "bound_unfused_ms")
+               if k in t},
             "tuned_config": main_path["winners"][name], "tuner": main_path["tuner"][name],
             "status": "ok",
         })

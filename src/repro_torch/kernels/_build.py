@@ -94,16 +94,15 @@ def _nvcc_version(nvcc: str) -> str:
     return lines[-1].strip() if lines else out.strip().splitlines()[-1]
 
 
-def compile_library(nvcc: str, target: Path, csrc: Path = CSRC,
-                    sources: tuple[str, ...] = SOURCES) -> str:
-    """Compile ``sources`` of ``csrc`` in parallel, link one shared library
-    to ``target`` (atomically), and return the compilers' combined report."""
+def _compile(nvcc: str, target: Path) -> str:
+    """Compile every source in parallel, link one shared library to
+    ``target`` (atomically), and return the compilers' combined report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for name in sources:
+        for name in SOURCES:
             obj = Path(tmp) / (Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(csrc / name), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
@@ -128,16 +127,6 @@ def compile_library(nvcc: str, target: Path, csrc: Path = CSRC,
     return "\n".join(logs)
 
 
-def load_library(path: Path, signatures: dict) -> ctypes.CDLL:
-    """Load a built library and declare the C signatures of its functions."""
-    cdll = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in signatures.items():
-        fn = getattr(cdll, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-    return cdll
-
-
 _lock = threading.Lock()
 _loaded: list[KernelLibrary] = []
 
@@ -152,9 +141,13 @@ def library() -> KernelLibrary:
         build_s, log = 0.0, ""
         if not target.exists():
             t0 = monotonic()
-            log = compile_library(nvcc, target)
+            log = _compile(nvcc, target)
             build_s = monotonic() - t0
-        cdll = load_library(target, SIGNATURES)
+        cdll = ctypes.CDLL(str(target))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
         lib = KernelLibrary(cdll=cdll, path=str(target), nvcc=_nvcc_version(nvcc),
                             build_s=build_s, ptxas_log=log)
         _loaded.append(lib)

@@ -7,12 +7,13 @@
 //
 // Bound: f32 operations.  The kernel reads nothing and writes 4 bytes a pixel
 // (268 MB at 8192x8192, 0.08 ms at 3.35 TB/s), while each pixel runs up to 64
-// trips of about 10 f32 operations.  Every operation rounds on its own (the
-// _rn intrinsics keep the compiler from contracting a multiply and an add),
-// so none issues as half of an FMA and the reachable rate is the card's
-// unfused f32 rate, half its FMA-counted peak.  A per-trip escape test adds a
-// compare, a warp vote, a branch and loop bookkeeping to every trip, and a
-// warp runs until its slowest lane escapes.
+// trips of 7 f32 operations (zr*zr, zi*zi, their difference, + cre, 2*zr,
+// * zi, + cim) and needs one escape test.  Every operation rounds on its own
+// (the _rn intrinsics keep the compiler from contracting a multiply and an
+// add), so none issues as half of an FMA and the reachable rate is the card's
+// unfused f32 rate, half its FMA-counted peak.  A per-trip escape test adds an
+// add, a compare, a warp vote, a branch and loop bookkeeping to every trip,
+// and a warp runs until its slowest lane escapes.
 //
 // Design:
 // - Blocked escape test.  A lane saves (zr, zi), runs a block of K trips

@@ -97,13 +97,6 @@ def test_mandelbrot_launch_args_come_from_the_plan(cfg, shape):
     assert len(args) + 3 == _n_ints("repro_mandelbrot_f32")
 
 
-def test_compare_builds_needs_a_card(tmp_path):
-    # the timing tool refuses to run without a card instead of timing the CPU
-    from repro_torch.cuda_bench import compare_builds
-
-    assert compare_builds.main([str(tmp_path)]) == 1
-
-
 def _c(x: int, y: int):
     """c over the view, as mandelbrot_ref computes it."""
     xmin, xmax, ymin, ymax = VIEW
