@@ -10,14 +10,19 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: the kernel library from ``src/repro_torch/kernels/csrc`` with
    ``nvcc``, its build seconds and ``-Xptxas -v`` report, and the 16-byte
    global loads and stores in each kernel's machine code (``cuobjdump``
-   beside ``nvcc``), which add's vector path must have;
+   beside ``nvcc``), which add's vector path must have; for harris its
+   registers, spills (there must be none) and shared memory, and its counts
+   of global-to-shared copies, shared and global loads and stores and
+   barriers in the machine code;
 3. each CUDA kernel against its plain PyTorch version on the card, at
    8192x8192, a ragged 1000x1000, a width that no 16-byte vector divides
    (1000x1001) and a small odd 37x129, over the reference tests' configs
    plus a large-tile and a clamped-duplicate config: add exactly (f32 and
    bf16, also with an input offset by one element, which takes the scalar
    path), mandelbrot exactly on every pixel, harris within 1e-5 of its
-   largest value; with the count of elements that differ at all;
+   largest value (also on an image offset by one element, which takes its
+   4-byte copies, and at 8x130, one sub-tile high with a ragged column);
+   with the count of elements that differ at all;
 4. the main path: ``repro_torch.tune(TuningSpec(kernel=k, backend="cuda"))``
    at 8192x8192 for add, harris and mandelbrot (GA) and add (RS), each with
    the launch counts set to 0 just before and read just after, then each GA
@@ -27,7 +32,8 @@ Phases (any failure exits non-zero and prints no result line):
    where one exists, and the least time the card could take (bound; for
    mandelbrot also at the card's unfused f32 rate, since every operation
    of the kernel rounds on its own); for add also its vector and scalar
-   paths on the same aligned inputs, in turns;
+   paths on the same aligned inputs, in turns; for add and harris also at
+   the default config on an input offset by one element;
 6. one ``{"kernels": [...]}`` line, then the device line last.
 """
 
@@ -51,6 +57,8 @@ CONFIGS = [
     dict(t_x=16, t_y=16, t_z=16),
     dict(t_x=3, t_y=3, t_z=5, w_x=7, w_y=5),   # clamped duplicate blocks
 ]
+#: harris also at one sub-tile's height with a ragged column (130 = 128 + 2)
+HARRIS_SHAPES = [(8, 130)]
 DEFAULT_CONFIG = dict(t_x=1, t_y=1, t_z=1, w_x=1, w_y=1, w_z=1)   # what {} means
 MAIN_PATH = [("add", "ga"), ("harris", "ga"), ("mandelbrot", "ga"), ("add", "rs")]
 BUDGET = 40
@@ -84,22 +92,61 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def wide_accesses(lib_path: str, nvcc: str) -> dict:
-    """Per kernel function of the library, how many 128-bit global loads and
-    stores its SASS holds."""
+def sass_of(lib_path: str, nvcc: str) -> str:
+    """The library's machine code as ``cuobjdump -sass`` prints it."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+    return subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
                           timeout=120, check=True).stdout
+
+
+def sass_opcodes(sass: str) -> dict:
+    """Per kernel function of ``cuobjdump -sass`` output, the opcodes (with
+    their modifiers, e.g. ``LDG.E.128.CONSTANT``) of the instructions that
+    can run, and how often each occurs."""
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"LDG.E.128": 0, "STG.E.128": 0}
-        elif name is not None:
-            for op in counts[name]:
-                counts[name][op] += op in line
+            counts[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        # an instruction predicated on !PT never runs (the compiler pads
+        # cp.async with such shared loads)
+        if m and name is not None and (m.group(1) or "").strip() != "@!PT":
+            counts[name][m.group(2)] = counts[name].get(m.group(2), 0) + 1
     return counts
+
+
+def count_ops(ops: dict, prefix: str) -> int:
+    """How many instructions of ``ops`` have an opcode that is ``prefix``, or
+    starts with it followed by a modifier."""
+    return sum(n for op, n in ops.items() if op == prefix or op.startswith(prefix + "."))
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel function, what ``-Xptxas -v`` reported: registers, stack
+    frame, spill stores and loads, static shared memory (bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def time_ms(fn, n: int, warmup: int = 2) -> float:
@@ -152,7 +199,7 @@ def check_kernels() -> tuple[dict, dict]:
         b = torch.randn((x, y), generator=gen, device="cuda")
         img = torch.randn((x, y), generator=gen, device="cuda")
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        a_off, a16_off = offset_copy(a), offset_copy(a16)
+        a_off, a16_off, img_off = offset_copy(a), offset_copy(a16), offset_copy(img)
         ref_add, ref_add16 = K.add_ref(a, b), K.add_ref(a16, b16)
         ref_h = K.harris_ref(img)
         ref_m = K.mandelbrot_ref(x, y, device="cuda")
@@ -176,6 +223,11 @@ def check_kernels() -> tuple[dict, dict]:
             h_err = (h - ref_h).abs().max().item()
             rel = h_err / ref_h.abs().max().item()
             require(rel < 1e-5, f"harris {x}x{y} {cfg}: max|d|/max|ref| = {rel}")
+            h_off = K.harris(img_off, cfg)
+            rel_off = ((h_off - ref_h).abs().max() / ref_h.abs().max()).item()
+            require(rel_off < 1e-5, f"harris {x}x{y} {cfg}, image offset by one element: "
+                    f"max|d|/max|ref| = {rel_off}")
+            h_diff = int((h != ref_h).sum().item())
 
             m = K.mandelbrot(x, y, cfg, device="cuda")
             m_diff = (m - ref_m).abs()
@@ -191,10 +243,21 @@ def check_kernels() -> tuple[dict, dict]:
                              ("mandelbrot", m_diff != 0)):
                     n_diff[k] = max(n_diff[k], int(d.sum().item()))
             print(f"check {x}x{y} {json.dumps(cfg, sort_keys=True)}: add exact (f32, bf16, "
-                  f"aligned and offset; vector paths {paths}); harris rel {rel:.3e} < 1e-5; "
+                  f"aligned and offset; vector paths {paths}); harris rel {rel:.3e} "
+                  f"(offset image {rel_off:.3e}) < 1e-5, {h_diff} elements differ; "
                   f"mandelbrot exact on every pixel")
-        del a, b, img, a16, b16, a_off, a16_off, ref_add, ref_add16, ref_h, ref_m
+        del a, b, img, a16, b16, a_off, a16_off, img_off, ref_add, ref_add16, ref_h, ref_m
         torch.cuda.empty_cache()
+    for x, y in HARRIS_SHAPES:
+        img = torch.randn((x, y), generator=gen, device="cuda")
+        ref_h = K.harris_ref(img)
+        for cfg in CONFIGS:
+            h = K.harris(img, cfg)
+            rel = ((h - ref_h).abs().max() / ref_h.abs().max()).item()
+            require(rel < 1e-5, f"harris {x}x{y} {cfg}: max|d|/max|ref| = {rel}")
+            h_diff = int((h != ref_h).sum().item())
+            print(f"check harris {x}x{y} {json.dumps(cfg, sort_keys=True)}: rel {rel:.3e} "
+                  f"< 1e-5, {h_diff} elements differ")
     for k, c in K.LAUNCHES.items():
         require(c.n > before[k], f"{k}: launch counter did not move during the checks")
     print(f"check {SHAPES[0][0]}x{SHAPES[0][1]}: most differing elements {n_diff}")
@@ -326,9 +389,13 @@ def time_kernels(winners: dict) -> dict:
     require(rel < 1e-5, f"harris winner: rel {rel}")
     # gradients and their products on the (x+2)(y+2) ring, box sums and R on x*y
     bms, by = bound(2 * 4 * n, 15 * (x + 2) * (y + 2) + 31 * n)
+    img_off = offset_copy(img)
+    rel = ((K.harris(img_off) - ref).abs().max() / ref.abs().max()).item()
+    require(rel < 1e-5, f"harris, image offset by one element: rel {rel}")
     out["harris"] = dict(
         ms=time_ms(lambda: K.harris(img, win), 50),
         ms_default=time_ms(lambda: K.harris(img), 50),
+        ms_default_offset_input=time_ms(lambda: K.harris(img_off), 50),
         plain_ms=time_ms(lambda: K.harris_ref(img), 10),
         library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -380,12 +447,25 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if line.strip():
             print(f"  {line.strip()}")
-    wide = wide_accesses(lib.path, find_nvcc())
+    sass = sass_opcodes(sass_of(lib.path, find_nvcc()))
+    wide = {fn: {op: count_ops(ops, op) for op in ("LDG.E.128", "STG.E.128")}
+            for fn, ops in sass.items()}
     for fn, ops in wide.items():
         print(f"sass {fn}: {ops}")
     add_fns = [ops for fn, ops in wide.items() if "add_kernel" in fn]
     require(len(add_fns) == 2 and all(min(ops.values()) > 0 for ops in add_fns),
             f"add: no 16-byte loads and stores in its machine code: {wide}")
+    # harris: what the compiler made of its staging, its shared-memory reads
+    # and its barriers (LDGSTS is cp.async); no spills
+    harris_fns = [fn for fn in sass if "harris_kernel" in fn]
+    require(len(harris_fns) == 1, f"harris: kernel functions {harris_fns}")
+    report = ptxas_report(lib.ptxas_log).get(harris_fns[0], {})
+    ops = sass[harris_fns[0]]
+    harris_sass = {op: count_ops(ops, op)
+                   for op in ("LDGSTS", "LDG", "LDS", "STS", "STG", "BAR", "SHFL")}
+    print(f"harris: ptxas {report} sass {harris_sass} of {sum(ops.values())} instructions")
+    require(report.get("spill_stores") == 0 and report.get("spill_loads") == 0,
+            f"harris: spills or no ptxas report: {report}")
     for name, bench in KERNEL_BENCHES.items():
         smem = kernel_smem_bytes(name)
         print(f"smem {name}: compiled {smem} B, screened {bench.smem_bytes} B")

@@ -61,7 +61,7 @@ class KernelLibrary:
     path: str
     nvcc: str            # ``nvcc --version``'s release line
     build_s: float       # seconds this process spent building (0.0 if reused)
-    ptxas_log: str       # ``-Xptxas -v`` report of this process's build
+    ptxas_log: str       # ``-Xptxas -v`` report of the build (kept beside the library)
 
 
 def find_nvcc() -> str:
@@ -123,8 +123,16 @@ def _compile(nvcc: str, target: Path) -> str:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(so, target)
-    return "\n".join(logs)
+        log = "\n".join(logs)
+        report = Path(tmp) / "ptxas.txt"
+        report.write_text(log)
+        os.replace(report, _report_path(target))   # before the library: a
+        os.replace(so, target)                     # built library has its report
+    return log
+
+
+def _report_path(target: Path) -> Path:
+    return target.with_name(target.name + ".ptxas.txt")
 
 
 _lock = threading.Lock()
@@ -138,8 +146,9 @@ def library() -> KernelLibrary:
             return _loaded[0]
         nvcc = find_nvcc()
         target = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
-        build_s, log = 0.0, ""
-        if not target.exists():
+        if target.exists():
+            build_s, log = 0.0, _report_path(target).read_text()
+        else:
             t0 = monotonic()
             log = _compile(nvcc, target)
             build_s = monotonic() - t0

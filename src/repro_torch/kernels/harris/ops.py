@@ -4,7 +4,8 @@ On CUDA tensors ``harris(img, config)`` launches the hand-written kernel,
 which masks the ragged edge itself (the reference pads rows to the band
 height instead); on CPU tensors it computes the plain version.  Unlike the
 reference's full-width bands, the kernel tiles both axes, so t_y and w_y
-shape its launch.
+shape its launch.  The kernel itself chooses 16-byte or 4-byte copies from
+the image's row width and alignment.
 """
 
 from __future__ import annotations
@@ -16,12 +17,19 @@ from .._build import launch
 from ..common import Config, KernelBenchSpec, LaunchCounter, geometry_from_config, launch_plan
 from .ref import HARRIS_K, harris_ref
 
-#: static shared memory of one block: a (8+4)x(128+4) input window and two
-#: (8+2)x(128+2) gradient windows of f32 (checked against the compiled
-#: kernel on the card)
-SMEM_BYTES = 4 * (12 * 132 + 2 * 10 * 130)
+#: static shared memory of one block: a ring of 4 groups of 4 staged input
+#: rows, each 128 + 2 * 4 f32 wide (checked against the compiled kernel on
+#: the card)
+SMEM_BYTES = 4 * (4 * 4 * 136)
 
 launches = LaunchCounter()
+
+
+def launch_args(x: int, y: int, config: Config | None) -> tuple[int, ...]:
+    """The integer arguments of ``repro_harris_f32`` between the pointers and
+    ``k``: the image and the launch plan of ``config``."""
+    plan = launch_plan(geometry_from_config(config or {}), x, y)
+    return (x, y, plan.rows, plan.cols, plan.nblk_r, plan.nblk_c, *plan.grid)
 
 
 def harris(img: torch.Tensor, config: Config | None = None, k: float = HARRIS_K) -> torch.Tensor:
@@ -35,13 +43,10 @@ def harris(img: torch.Tensor, config: Config | None = None, k: float = HARRIS_K)
         return harris_ref(img, k)
     if not img.is_cuda:
         raise ValueError(f"harris: unsupported device {img.device}")
-    x, y = img.shape
-    plan = launch_plan(geometry_from_config(config or {}), x, y)
     out = torch.empty_like(img)
     launch(
         "repro_harris_f32",
-        img.data_ptr(), out.data_ptr(), x, y,
-        plan.rows, plan.cols, plan.nblk_r, plan.nblk_c, *plan.grid, float(k),
+        img.data_ptr(), out.data_ptr(), *launch_args(*img.shape, config), float(k),
         img.device.index, torch.cuda.current_stream(img.device).cuda_stream,
     )
     launches.add()

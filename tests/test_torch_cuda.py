@@ -63,13 +63,18 @@ def test_cuda_add_is_exact(card, shape, cfg, dtype, offset):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+#: (8, 130): one sub-tile high, with a ragged column
+@pytest.mark.parametrize("shape", SHAPES + [(8, 130)])
 @pytest.mark.parametrize("cfg", CONFIGS)
-def test_cuda_harris_matches_plain(card, shape, cfg):
+@pytest.mark.parametrize("offset", [False, True])
+def test_cuda_harris_matches_plain(card, shape, cfg, offset):
     gen = torch.Generator(device=card).manual_seed(1)
     img = torch.randn(shape, generator=gen, device=card)
-    out = harris(img, cfg)
     ref = harris_ref(img)
+    if offset:
+        # contiguous, one element past an aligned allocation: 4-byte copies
+        img = torch.empty(img.numel() + 1, device=card)[1:].view(shape).copy_(img)
+    out = harris(img, cfg)
     assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-5
 
 

@@ -1,5 +1,5 @@
-"""The host-side choices of the add and mandelbrot kernels' designs, and the
-premise the mandelbrot kernel rests on, checked without a card.
+"""The host-side choices of the kernels' designs, and the premises the
+mandelbrot and harris kernels rest on, checked without a card.
 
 - add moves 16 bytes per access only where every row starts 16-byte aligned;
   the wrapper decides that on the host (``vector_path``).
@@ -10,18 +10,30 @@ premise the mandelbrot kernel rests on, checked without a card.
   it.  A torch model of that scheme on whole images must equal
   ``mandelbrot_ref`` on every pixel: it does only if escape is permanent over
   the view.
+- the harris kernel computes R with separable passes over rolling row
+  windows, strip by strip within each launch-plan tile and its halo.  A
+  torch model of that arithmetic, tile by tile and stitched, must be the
+  same function as ``harris_ref`` and the reference's oracle.
+- ``chip_smoke.py`` reads the compiler's reports (``-Xptxas -v`` and
+  ``cuobjdump -sass``) to hold the harris kernel to no spills.
 """
 
 import importlib.util
 from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import _build, add, add_ref, mandelbrot_ref
+from repro.kernels import harris_ref as jax_harris_ref
+from repro_torch.kernels import _build, add, add_ref, harris_ref, mandelbrot_ref
 from repro_torch.kernels.add.ops import launch_args as add_launch_args
 from repro_torch.kernels.add.ops import vector_path
 from repro_torch.kernels.common import geometry_from_config, launch_plan
+from repro_torch.kernels.harris.ops import launch_args as harris_launch_args
+from repro_torch.kernels.harris.ref import HARRIS_K
 from repro_torch.kernels.mandelbrot.ops import launch_args as mandelbrot_launch_args
 from repro_torch.kernels.mandelbrot.ref import MAX_ITER, VIEW
 
@@ -95,6 +107,17 @@ def test_mandelbrot_launch_args_come_from_the_plan(cfg, shape):
     assert list(args[10:]) == f32
     # the output pointer before, the device and the stream after
     assert len(args) + 3 == _n_ints("repro_mandelbrot_f32")
+
+
+@pytest.mark.parametrize("cfg", SMOKE.CONFIGS)
+@pytest.mark.parametrize("shape", SMOKE.SHAPES)
+def test_harris_launch_args_come_from_the_plan(cfg, shape):
+    x, y = shape
+    plan = launch_plan(geometry_from_config(cfg), x, y)
+    args = harris_launch_args(x, y, cfg)
+    assert args == (x, y, plan.rows, plan.cols, plan.nblk_r, plan.nblk_c, *plan.grid)
+    # two pointers before; k, the device and the stream after
+    assert len(args) + 5 == _n_ints("repro_harris_f32")
 
 
 def _c(x: int, y: int):
@@ -172,3 +195,107 @@ def test_escape_is_permanent_over_the_view(shape):
         out |= ~inside
         zr, zi = _trip(zr, zi, cre, cim)
     assert out.any() and not out.all()
+
+
+STRIP = 128     # output columns a block walks at a time (64 threads x 2)
+GROUP = 4       # input rows staged together
+PAD = 4         # staged columns each side of a strip
+
+
+def harris_tiled_model(img: torch.Tensor, config: dict, k: float = HARRIS_K) -> torch.Tensor:
+    """The harris kernel's arithmetic in f32, in its order: for each clamped
+    tile origin of ``launch_plan`` (duplicates included), each 128-column
+    strip walks the tile's rows plus a 2-row halo in groups of 4 staged rows
+    (zero outside the image), carrying the last two rows of d and s and of
+    the products' row sums; each thread's two columns share the middle pair
+    of their across-sums.  Outputs outside the tile are computed and
+    dropped, as the kernel masks them.  (The kernel fuses 2*a + b into one
+    FMA, which rounds as the model does since 2*a is exact; it may contract
+    the products in det and tr^2, which the model rounds twice.)"""
+    x, y = img.shape
+    plan = launch_plan(geometry_from_config(config), x, y)
+    # staged element (row r, column c) of the image is ext[r + 2, c + PAD]
+    ext = F.pad(img, (PAD, STRIP + 2 * PAD, 2, 2 * GROUP))
+    out = torch.full_like(img, float("nan"))
+
+    def across(q):   # q: a staged row, columns cs-4 .. cs+131
+        d = q[4:134] - q[2:132]                 # columns cs-1 .. cs+128
+        s = (q[2:132] + q[4:134]) + 2.0 * q[3:133]
+        return d, s
+
+    def box_across(a):   # a at columns cs-1 .. cs+128 -> sums at cs .. cs+127
+        u = a[1:129:2] + a[2:130:2]             # the middle pair of a thread
+        return torch.stack([a[0:128:2] + u, u + a[3:130:2]], dim=1).reshape(STRIP)
+
+    def gradient(d0, d1, s0, dn, sn):
+        gx = (d0 + dn) + 2.0 * d1
+        gy = sn - s0
+        return box_across(gx * gx), box_across(gy * gy), box_across(gx * gy)
+
+    for r0, c0 in plan.origins():
+        r_end, c_end = min(r0 + plan.rows, x), min(c0 + plan.cols, y)
+        n_groups = (r_end - r0 + 4 + GROUP - 1) // GROUP
+        for cs in range(c0, c_end, STRIP):
+            rows = [ext[r0 + i, cs:cs + STRIP + 2 * PAD] for i in range(GROUP * n_groups)]
+            (d0, s0), (d1, s1) = across(rows[0]), across(rows[1])
+            h = []
+            for i, q in enumerate(rows[2:], start=2):
+                dn, sn = across(q)
+                hn = gradient(d0, d1, s0, dn, sn)
+                d0, d1, s0, s1 = d1, dn, s1, sn
+                if i >= 4:
+                    row = r0 + i - 4
+                    sxx, syy, sxy = ((a + b) + c for a, b, c in zip(*h, hn, strict=True))
+                    det = sxx * syy - sxy * sxy
+                    tr = sxx + syy
+                    resp = det - k * tr * tr
+                    if row < r_end:
+                        out[row, cs:min(cs + STRIP, c_end)] = resp[:min(STRIP, c_end - cs)]
+                    h = [h[1], hn]
+                else:
+                    h.append(hn)
+    return out
+
+
+@pytest.mark.parametrize("cfg", SMOKE.CONFIGS)
+@pytest.mark.parametrize("shape", [(64, 128), (37, 129), (56, 200), (8, 130)])
+def test_harris_tiled_model_is_the_reference_function(cfg, shape):
+    rng = np.random.default_rng(5)
+    img = rng.standard_normal(shape).astype(np.float32)
+    model = harris_tiled_model(torch.from_numpy(img), cfg)
+    assert not model.isnan().any()      # the tiles cover every pixel
+    for ref in (harris_ref(torch.from_numpy(img)),
+                torch.from_numpy(np.array(jax_harris_ref(jnp.asarray(img))))):
+        assert ((model - ref).abs().max() / ref.abs().max()).item() < 1e-5
+
+
+PTXAS_LOG = """== harris.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z13harris_kernelPKfPfiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _Z13harris_kernelPKfPfiiiiiif
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 8704 bytes smem, 408 bytes cmem[0]
+"""
+
+SASS = """
+\tFunction : _Z13harris_kernelPKfPfiiiiiif
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+                                                                     /* 0x000fe20000000800 */
+        /*0010*/              @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ;
+        /*0018*/              @!PT LDS RZ, [RZ] ;
+        /*0020*/                   LDS.64 R6, [R2+0x8] ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0040*/               @P1 STG.E.64 desc[UR4][R8.64], R6 ;
+        /*0050*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+"""
+
+
+def test_chip_smoke_reads_the_compiler_reports():
+    report = SMOKE.ptxas_report(PTXAS_LOG)["_Z13harris_kernelPKfPfiiiiiif"]
+    assert report == dict(stack=0, spill_stores=8, spill_loads=4, registers=56, smem=8704)
+    ops = SMOKE.sass_opcodes(SASS)["_Z13harris_kernelPKfPfiiiiiif"]
+    assert sum(ops.values()) == 6
+    counts = {op: SMOKE.count_ops(ops, op) for op in ("LDGSTS", "LDG", "LDS", "STS", "BAR")}
+    # LDGSTS is neither an LDG nor an STS; an LDS on !PT never runs
+    assert counts == dict(LDGSTS=1, LDG=1, LDS=1, STS=0, BAR=1)
+    assert SMOKE.count_ops(ops, "LDG.E.128") == 1
