@@ -26,7 +26,12 @@ Phases (any failure exits non-zero and prints no result line):
 4. the main path: ``repro_torch.tune(TuningSpec(kernel=k, backend="cuda"))``
    at 8192x8192 for add, harris and mandelbrot (GA) and add (RS), each with
    the launch counts set to 0 just before and read just after, then each GA
-   winner and the default config re-timed by the tuner's own timer;
+   winner and the default config re-timed by the tuner's own timer; each
+   call's host time outside the measurement stages (``search_s``);
+   then every other searcher (``rf``, ``bo_gp``, ``bo_tpe``, ``sa``, ``pso``,
+   ``grid``) through the same entry point on each kernel at 8192x8192,
+   counted the same way, each winner held to the plain version and timed
+   with CUDA events against the default config;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -61,6 +66,9 @@ CONFIGS = [
 HARRIS_SHAPES = [(8, 130)]
 DEFAULT_CONFIG = dict(t_x=1, t_y=1, t_z=1, w_x=1, w_y=1, w_z=1)   # what {} means
 MAIN_PATH = [("add", "ga"), ("harris", "ga"), ("mandelbrot", "ga"), ("add", "rs")]
+#: the searchers the main path does not run, each tuned on every kernel
+OTHER_SEARCHERS = ("rf", "bo_gp", "bo_tpe", "sa", "pso", "grid")
+KERNELS = ("add", "harris", "mandelbrot")
 BUDGET = 40
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate off the tensor
@@ -264,55 +272,118 @@ def check_kernels() -> tuple[dict, dict]:
     return max_err, n_diff
 
 
-def run_main_path() -> dict:
-    """Phase 4: the tuning loop through the public entry point, with the
-    launch counts set to 0 just before each run and read just after.  For
-    each GA run, afterwards: whether the default config was among the
-    samples, and the winner and the default re-measured one after the other
-    by the tuner's own timer (host clock around launch + synchronize)."""
+def tune_once(kernel: str, searcher: str):
+    """One tune call through the public entry point, with the launch counts
+    set to 0 just before it and read just after; its line, and the checks
+    every tune call must pass.  ``search_s`` is the call's host time outside
+    the measurement stages: the searcher's proposals, its surrogate, the
+    validity screen it applies to what it samples."""
     import torch
 
     from repro_torch import TuningSession, TuningSpec
     from repro_torch.kernels import LAUNCHES
 
-    winners, tuner, counted = {}, {}, {k: 0 for k in LAUNCHES}
+    session = TuningSession(TuningSpec(kernel=kernel, backend="cuda", searcher=searcher,
+                                       budget=BUDGET, seed=0))
+    for c in LAUNCHES.values():
+        c.n = 0
+    result = session.run()
+    torch.cuda.synchronize()
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    prov = session.last_record.extra["backend_provenance"]
+    wall_s = session.last_record.provenance["wall_s"]
+    search_s = wall_s - sum(prov["stage_s"].values())
+    sampled = [v for c, v in zip(result.history_configs, result.history_values)
+               if dict(c) == DEFAULT_CONFIG]
+    print(f"tune {kernel}/{searcher}: "
+          f"best_config={json.dumps(result.best_config, sort_keys=True)} "
+          f"final_value={result.final_value!r} s n_samples={result.n_samples} "
+          f"n_invalid={prov['n_invalid']} n_compiles={prov['n_compiles']} "
+          f"device_kind={prov['device_kind']!r} launches={got} "
+          f"wall_s={wall_s} stage_s={prov['stage_s']} search_s={search_s:.3f} "
+          f"default_sampled={bool(sampled)}")
+    require(math.isfinite(result.final_value) and result.final_value > 0,
+            f"{kernel}/{searcher}: final_value {result.final_value}")
+    require(result.n_samples == BUDGET, f"{kernel}/{searcher}: n_samples {result.n_samples}")
+    require(got[kernel] > 0, f"{kernel}/{searcher}: the tune call launched no kernel")
+    require(all(n == 0 for k, n in got.items() if k != kernel), got)
+    require(prov["device"] == "cuda" and prov["launches"] == got[kernel], prov)
+    stats = dict(final_ms=result.final_value * 1e3, default_sampled=bool(sampled),
+                 default_sampled_ms=sampled[0] * 1e3 if sampled else None,
+                 n_invalid=prov["n_invalid"], wall_s=wall_s, stage_s=prov["stage_s"],
+                 search_s=search_s)
+    return session, result, got[kernel], stats
+
+
+def run_main_path() -> dict:
+    """Phase 4: the tuning loop through the public entry point.  For each GA
+    run, afterwards: whether the default config was among the samples, and
+    the winner and the default re-measured one after the other by the
+    tuner's own timer (host clock around launch + synchronize)."""
+    winners, tuner, counted = {}, {}, {k: 0 for k in KERNELS}
     for kernel, searcher in MAIN_PATH:
-        session = TuningSession(TuningSpec(kernel=kernel, backend="cuda", searcher=searcher,
-                                           budget=BUDGET, seed=0))
-        for c in LAUNCHES.values():
-            c.n = 0
-        result = session.run()
-        torch.cuda.synchronize()
-        got = {k: c.n for k, c in LAUNCHES.items()}
-        prov = session.last_record.extra["backend_provenance"]
-        print(f"tune {kernel}/{searcher}: "
-              f"best_config={json.dumps(result.best_config, sort_keys=True)} "
-              f"final_value={result.final_value!r} s n_samples={result.n_samples} "
-              f"n_invalid={prov['n_invalid']} n_compiles={prov['n_compiles']} "
-              f"device_kind={prov['device_kind']!r} launches={got} "
-              f"wall_s={session.last_record.provenance['wall_s']} stage_s={prov['stage_s']}")
-        require(math.isfinite(result.final_value) and result.final_value > 0,
-                f"{kernel}/{searcher}: final_value {result.final_value}")
-        require(result.n_samples == BUDGET, f"{kernel}/{searcher}: n_samples {result.n_samples}")
-        require(got[kernel] > 0, f"{kernel}: the main path launched no kernel")
-        require(all(n == 0 for k, n in got.items() if k != kernel), got)
-        require(prov["device"] == "cuda" and prov["launches"] == got[kernel], prov)
-        counted[kernel] += got[kernel]
+        session, result, launches, stats = tune_once(kernel, searcher)
+        counted[kernel] += launches
         if searcher == "ga":
             winners[kernel] = result.best_config
-            sampled = [v for c, v in zip(result.history_configs, result.history_values)
-                       if dict(c) == DEFAULT_CONFIG]
             m = session.measurement
             tuner[kernel] = dict(
-                final_ms=result.final_value * 1e3,
-                default_sampled=bool(sampled),
-                default_sampled_ms=sampled[0] * 1e3 if sampled else None,
+                final_ms=stats["final_ms"],
+                default_sampled=stats["default_sampled"],
+                default_sampled_ms=stats["default_sampled_ms"],
                 host_ms_winner=m.measure_final(result.best_config, repeats=10) * 1e3,
                 host_ms_default=m.measure_final(DEFAULT_CONFIG, repeats=10) * 1e3,
             )
             print(f"tune {kernel}/{searcher} afterwards: "
                   + " ".join(f"{k}={v!r}" for k, v in tuner[kernel].items()))
     return {"winners": winners, "tuner": tuner, "launches": counted}
+
+
+def run_searchers() -> dict:
+    """Phase 4b: every searcher the main path does not run, on each kernel,
+    counted as the main path is.  ``rf``'s winner must be one of its 10
+    measured predictions.  Afterwards, per kernel, each winner held to the
+    plain version and timed with CUDA events, the default config timed
+    before and after them."""
+    import torch
+
+    import repro_torch.kernels as K
+
+    out, counted = {k: {} for k in KERNELS}, {k: 0 for k in KERNELS}
+    for kernel in KERNELS:
+        for searcher in OTHER_SEARCHERS:
+            _, result, launches, stats = tune_once(kernel, searcher)
+            if searcher == "rf":
+                require(result.best_config in result.history_configs[-10:],
+                        f"{kernel}/rf: best_config {result.best_config} is not one of "
+                        "its 10 measured predictions")
+            counted[kernel] += launches
+            out[kernel][searcher] = dict(best_config=result.best_config, **stats)
+
+    x, y = SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn((x, y), generator=gen, device="cuda")
+    b = torch.randn((x, y), generator=gen, device="cuda")
+    ref_add, ref_h = K.add_ref(a, b), K.harris_ref(a)
+    ref_m = K.mandelbrot_ref(x, y, device="cuda")
+    runs = {
+        "add": (lambda cfg: K.add(a, b, cfg), lambda o: torch.equal(o, ref_add), 50),
+        "harris": (lambda cfg: K.harris(a, cfg),
+                   lambda o: ((o - ref_h).abs().max() / ref_h.abs().max()).item() < 1e-5, 50),
+        "mandelbrot": (lambda cfg: K.mandelbrot(x, y, cfg, device="cuda"),
+                       lambda o: torch.equal(o, ref_m), 20),
+    }
+    for kernel, (run, agrees, n) in runs.items():
+        default_ms = [time_ms(lambda: run(DEFAULT_CONFIG), n)]
+        for searcher, row in out[kernel].items():
+            require(agrees(run(row["best_config"])), f"{kernel}/{searcher} winner")
+            row["ms"] = time_ms(lambda c=row["best_config"]: run(c), n)
+        default_ms.append(time_ms(lambda: run(DEFAULT_CONFIG), n))
+        for searcher, row in out[kernel].items():
+            row["ms_default"] = default_ms
+            print(f"searcher {kernel}/{searcher} {x}x{y}: "
+                  + " ".join(f"{k}={v!r}" for k, v in row.items()))
+    return {"searchers": out, "launches": counted}
 
 
 def time_add_paths(a, b, winner: dict) -> dict:
@@ -473,6 +544,7 @@ def main() -> int:
 
     max_err, n_diff = check_kernels()                 # 3.
     main_path = run_main_path()                       # 4.
+    searchers = run_searchers()                       # 4b.
     times = time_kernels(main_path["winners"])        # 5.
 
     # 6. summary lines
@@ -482,7 +554,10 @@ def main() -> int:
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_path["launches"][name], "max_abs_err": max_err[name],
+            "launches": main_path["launches"][name] + searchers["launches"][name],
+            "launches_by_phase": {"main": main_path["launches"][name],
+                                  "searchers": searchers["launches"][name]},
+            "max_abs_err": max_err[name],
             "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -490,6 +565,7 @@ def main() -> int:
             **{k: t[k] for k in ("ms_default_offset_input", "paths_ms", "bound_unfused_ms")
                if k in t},
             "tuned_config": main_path["winners"][name], "tuner": main_path["tuner"][name],
+            "searchers": searchers["searchers"][name],
             "status": "ok",
         })
     print(f"gpu: {gpu_line()}")

@@ -18,11 +18,14 @@ __version__ = "0.1.0"
 
 from .core.api import RunRecord, TuningSession, TuningSpec, register_constraint, tune
 from .core.backends import BACKENDS, Backend, make_measurement, register_backend
+from .core.searchers import EXTRA_ALGORITHMS, PAPER_ALGORITHMS
 
 __all__ = [
     "__version__",
     "BACKENDS",
     "Backend",
+    "EXTRA_ALGORITHMS",
+    "PAPER_ALGORITHMS",
     "RunRecord",
     "TuningSession",
     "TuningSpec",

@@ -7,7 +7,14 @@ from .api import RunRecord, TuningSession, TuningSpec, register_constraint, tune
 from .backends import BACKENDS, Backend, make_measurement, register_backend
 from .engine import DiskCachedMeasurement, MeasurementStore, config_key, drive
 from .measurement import BaseMeasurement, CallableMeasurement, StageClock, fence
-from .searchers import SEARCHERS, TuningResult, make_searcher
+from .searchers import (
+    EXTRA_ALGORITHMS,
+    PAPER_ALGORITHMS,
+    SEARCHERS,
+    Searcher,
+    TuningResult,
+    make_searcher,
+)
 from .space import Param, SearchSpace, paper_space
 
 __all__ = [
@@ -16,11 +23,14 @@ __all__ = [
     "BaseMeasurement",
     "CallableMeasurement",
     "DiskCachedMeasurement",
+    "EXTRA_ALGORITHMS",
     "MeasurementStore",
+    "PAPER_ALGORITHMS",
     "Param",
     "RunRecord",
     "SEARCHERS",
     "SearchSpace",
+    "Searcher",
     "StageClock",
     "TuningResult",
     "TuningSession",

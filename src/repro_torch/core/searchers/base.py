@@ -1,4 +1,5 @@
-"""Searcher interface + registry: the batched ask/tell evaluation protocol.
+"""Searcher interface + registry: the batched ask/tell evaluation protocol
+(a port of ``repro.core.searchers.base``).
 
 A searcher minimizes a (noisy) measurement over a :class:`SearchSpace` with a
 fixed *sample budget* — the paper's central experimental axis.  Searchers are
@@ -9,15 +10,17 @@ algorithm definition serves three consumers:
 * the **ask/tell protocol** — ``start(budget)``, ``ask(n) -> list[Config]``,
   ``tell(configs, values)``, ``finish() -> TuningResult`` — for callers that
   own the evaluation loop (distributed/sharded matrix runs),
-* the **batched loop** ``engine.drive(searcher, measurement, budget)``
-  which routes every proposal batch through ``measure_batch`` (one
-  Python-level dispatch per batch),
+* the **batched loop** ``engine.drive(searcher, measurement, budget)`` (or
+  its thin shim :meth:`Searcher.run`) which routes every proposal batch
+  through ``measure_batch`` (one Python-level dispatch per batch),
 * the **sequential loop** ``drive(..., dispatch="one")`` which measures
   one config at a time — same proposals, same history, used for parity.
 
 ``drive`` returns a :class:`TuningResult` containing the best configuration the
 searcher chose, the value observed for it during the search, and the full
-sample history (used by the statistics layer and the benchmark figures).
+sample history (used by the statistics layer and the benchmark figures);
+:meth:`TuningResult.trajectory` is the best-so-far curve with the
+budget-clipping convention that best-at-budget curves use.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Generator, Sequence
 
 import numpy as np
 
+from ..measurement import BaseMeasurement
 from ..space import Config, SearchSpace
 
 #: type of the proposal generators: yields batches of configs, receives the
@@ -44,6 +48,44 @@ class TuningResult:
     history_configs: list = field(default_factory=list)
     history_values: list = field(default_factory=list)
     n_samples: int = 0
+
+    def trajectory(self, budget: int | None = None) -> np.ndarray:
+        """Best-so-far curve over the sample history.
+
+        THE budget-clipping convention lives here, once:
+
+        * ``budget=None`` returns the raw curve, length ``len(history_values)``.
+        * With ``budget``, the returned curve has length **exactly** ``budget``.
+          A search that ended early — exhausted space, the GA all-revisit
+          livelock break — holds its final best for the remaining samples
+          (right-padding with ``curve[-1]``): spending budget a terminated
+          search cannot use changes nothing, so best-at-budget is well defined
+          past the end of the history.
+        * A history *longer* than ``budget`` is a caller error (the engine's
+          ``finish()`` already enforces ``n_samples <= budget``) and raises.
+        """
+        if not self.history_values:
+            raise ValueError(
+                "TuningResult has an empty sample history — no trajectory. "
+                "Was the search run (finish() before any tell())?"
+            )
+        curve = np.minimum.accumulate(
+            np.asarray(self.history_values, dtype=np.float64)
+        )
+        if budget is None:
+            return curve
+        if budget < 1:
+            raise ValueError("budget must be >= 1")
+        if len(curve) > budget:
+            raise ValueError(
+                f"history has {len(curve)} samples > budget {budget}: "
+                "trajectories never clip — pass the budget the search ran with"
+            )
+        if len(curve) < budget:
+            curve = np.concatenate(
+                [curve, np.full(budget - len(curve), curve[-1])]
+            )
+        return curve
 
 
 class Searcher(ABC):
@@ -143,6 +185,24 @@ class Searcher(ABC):
             )
         self._session = None
         return result
+
+    # -- running a search -----------------------------------------------------
+    def run(
+        self,
+        measurement: BaseMeasurement,
+        budget: int,
+        dispatch: str = "batch",
+    ) -> TuningResult:
+        """Drive a full search: ``dispatch="batch"`` routes each proposal
+        batch through ``measurement.measure_batch`` (the hot path);
+        ``dispatch="one"`` measures sequentially (identical history).
+
+        A thin shim over the engine loop; ``repro_torch.tune(TuningSpec(...))``
+        owns measurement construction, caching, and the final re-measurement.
+        """
+        from ..engine import drive   # local import: engine depends on this module
+
+        return drive(self, measurement, budget, dispatch=dispatch)
 
     # -- internals ------------------------------------------------------------
     def _require_session(self) -> "_Session":

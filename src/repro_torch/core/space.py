@@ -6,9 +6,8 @@ with the constraint prod(workgroup) <= 256 available only to non-SMBO
 methods.  The port keeps the reference's cardinalities and sampling code
 verbatim (a copy of ``repro.core.space``), so the same seed proposes the same
 configs in both packages.  The machinery is generic: integer ranges,
-categorical choices and predicate constraints; what the unported searchers
-need beyond that (unit-cube maps, enumeration, neighbour moves) comes with
-them.
+categorical choices, optional log2 semantics, and arbitrary predicate
+constraints.
 
 Configs are plain dicts ``{param_name: value}``.  Internally every searcher
 works on an *index vector* (one integer index per parameter) so crossover,
@@ -17,8 +16,9 @@ mutation, Parzen estimators and tree splits are uniform across param types.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
@@ -37,6 +37,11 @@ class Param:
     def int_range(name: str, lo: int, hi: int) -> "Param":
         """Inclusive integer range [lo..hi]."""
         return Param(name, tuple(range(lo, hi + 1)))
+
+    @staticmethod
+    def pow2(name: str, lo: int, hi: int) -> "Param":
+        """Powers of two 2**lo .. 2**hi."""
+        return Param(name, tuple(2**e for e in range(lo, hi + 1)))
 
     @staticmethod
     def choice(name: str, options: Sequence) -> "Param":
@@ -118,6 +123,17 @@ class SearchSpace:
         except KeyError as e:
             raise ValueError(f"config value {e.args[0]!r} not in this space") from e
 
+    def to_unit(self, idxs: np.ndarray) -> np.ndarray:
+        """Index vectors -> points in the unit cube (for GP kernels).
+
+        Cell-centred: index i of a k-ary param maps to (i + 0.5) / k.
+        """
+        return (idxs.astype(np.float64) + 0.5) / self._cards.astype(np.float64)
+
+    def from_unit(self, x: np.ndarray) -> np.ndarray:
+        idx = np.floor(np.clip(x, 0.0, np.nextafter(1.0, 0.0)) * self._cards)
+        return idx.astype(np.int64)
+
     # -- validity -----------------------------------------------------------
     def is_valid(self, config: Config) -> bool:
         return self.constraint is None or bool(self.constraint(config))
@@ -153,6 +169,10 @@ class SearchSpace:
     def sample_batch(self, rng: np.random.Generator, n: int) -> list[Config]:
         return self.decode_batch(self.sample_indices(rng, n))
 
+    # -- enumeration (small spaces / grid search) ----------------------------
+    def iter_indices(self) -> Iterator[np.ndarray]:
+        for combo in itertools.product(*(range(c) for c in self._cards)):
+            yield np.array(combo, dtype=np.int64)
 
     def mutate(
         self, rng: np.random.Generator, idx: np.ndarray, p_mut: float
@@ -162,6 +182,30 @@ class SearchSpace:
         for j, c in enumerate(self._cards):
             if rng.random() < p_mut:
                 out[j] = rng.integers(0, c)
+        return out
+
+    def mutate_batch(
+        self, rng: np.random.Generator, idx: np.ndarray, p_mut: float, n: int
+    ) -> np.ndarray:
+        """n independent mutations of one index vector, fully vectorized."""
+        out = np.broadcast_to(idx, (n, self.n_params)).copy()
+        mask = rng.random((n, self.n_params)) < p_mut
+        rand = self._raw(rng, n)
+        return np.where(mask, rand, out)
+
+    def flat_keys(self, idxs: np.ndarray) -> np.ndarray:
+        """Row-wise unique int64 key (mixed-radix encoding) for dedup."""
+        strides = np.concatenate(
+            [np.cumprod(self._cards[::-1])[::-1][1:], [1]]
+        ).astype(np.int64)
+        return idxs @ strides
+
+    def neighbor(self, rng: np.random.Generator, idx: np.ndarray) -> np.ndarray:
+        """+-1 step on one random axis (simulated-annealing move)."""
+        out = idx.copy()
+        j = int(rng.integers(0, self.n_params))
+        step = 1 if rng.random() < 0.5 else -1
+        out[j] = int(np.clip(out[j] + step, 0, self._cards[j] - 1))
         return out
 
     def __repr__(self) -> str:  # pragma: no cover

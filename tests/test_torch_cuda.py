@@ -113,3 +113,24 @@ def test_cuda_tune_runs_on_the_card(card):
     assert LAUNCHES["harris"].n > 0
     prov = session.last_record.extra["backend_provenance"]
     assert prov["device"] == "cuda" and prov["capability"] == [9, 0]
+
+
+@pytest.mark.parametrize("searcher", ["rf", "bo_gp", "bo_tpe", "sa", "pso", "grid"])
+def test_cuda_tune_runs_each_searcher_on_the_card(card, searcher):
+    budget = 20
+    session = TuningSession(TuningSpec(
+        kernel="harris", backend="cuda", searcher=searcher, budget=budget,
+        backend_kwargs={"x": 1024, "y": 1024, "repeats": 2}, final_repeats=3,
+    ))
+    for c in LAUNCHES.values():
+        c.n = 0
+    result = session.run()
+    torch.cuda.synchronize()
+    assert result.n_samples == budget
+    assert math.isfinite(result.final_value) and result.final_value > 0
+    prov = session.last_record.extra["backend_provenance"]
+    assert prov["device"] == "cuda"
+    assert LAUNCHES["harris"].n == prov["launches"] > 0
+    assert LAUNCHES["add"].n == LAUNCHES["mandelbrot"].n == 0
+    if searcher == "rf":
+        assert result.best_config in result.history_configs[-10:]
