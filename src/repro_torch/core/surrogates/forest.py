@@ -5,7 +5,8 @@ The paper uses sklearn's RandomForestRegressor as the RF surrogate (Breiman
 2001: bootstrap bagging over variance-reduction decision trees with random
 feature selection).  The port depends on no sklearn, so this is a faithful
 re-implementation with the same defaults that matter:
-``n_estimators=100, bootstrap=True, min_samples_leaf=1, min_samples_split=2``.
+``n_estimators=100, bootstrap=True, min_samples_leaf=1, min_samples_split=2``,
+and every feature a split candidate at every node.
 
 Trees are stored as flat arrays so batch prediction is a vectorized
 level-by-level traversal (no Python recursion at predict time).  The ``rf``
@@ -37,13 +38,11 @@ class RegressionTree:
         max_depth: int = 32,
         min_samples_split: int = 2,
         min_samples_leaf: int = 1,
-        max_features: float | str = 1.0,
         rng: np.random.Generator | None = None,
     ):
         self.max_depth = max_depth
         self.min_samples_split = min_samples_split
         self.min_samples_leaf = min_samples_leaf
-        self.max_features = max_features
         self.rng = rng or np.random.default_rng(0)
         self.tree_: _FlatTree | None = None
 
@@ -52,13 +51,6 @@ class RegressionTree:
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64)
         n, d = X.shape
-        if self.max_features == "sqrt":
-            n_feat = max(1, int(np.sqrt(d)))
-        elif self.max_features == "third":
-            n_feat = max(1, d // 3)
-        else:
-            n_feat = max(1, int(round(float(self.max_features) * d)))
-
         feature, threshold, left, right, value = [], [], [], [], []
 
         def new_node() -> int:
@@ -82,7 +74,9 @@ class RegressionTree:
                 or np.ptp(y_node) == 0.0
             ):
                 continue
-            feats = self.rng.permutation(d)[:n_feat]
+            # every feature is a candidate, tried in a random order (the
+            # order breaks ties between equal gains)
+            feats = self.rng.permutation(d)
             best = self._best_split(X[idx], y_node, feats)
             if best is None:
                 continue
@@ -164,14 +158,12 @@ class RandomForestRegressor:
         n_estimators: int = 100,
         max_depth: int = 32,
         min_samples_leaf: int = 1,
-        max_features: float | str = 1.0,
         bootstrap: bool = True,
         seed: int = 0,
     ):
         self.n_estimators = n_estimators
         self.max_depth = max_depth
         self.min_samples_leaf = min_samples_leaf
-        self.max_features = max_features
         self.bootstrap = bootstrap
         self.seed = seed
         self.trees_: list[RegressionTree] = []
@@ -188,7 +180,6 @@ class RandomForestRegressor:
             tree = RegressionTree(
                 max_depth=self.max_depth,
                 min_samples_leaf=self.min_samples_leaf,
-                max_features=self.max_features,
                 rng=rng,
             )
             tree.fit(X[idx], y[idx])

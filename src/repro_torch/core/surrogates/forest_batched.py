@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 
+#: forests descended together in one predict pass (bounds its gather arrays)
+_CHUNK_FORESTS = 32
+
 
 class BatchedForest:
     """G independent forests fit simultaneously.
@@ -216,7 +219,7 @@ class BatchedForest:
         self._frozen = True
 
     # -------------------------------------------------------------- predict
-    def predict(self, Xp: np.ndarray, chunk_forests: int = 32) -> np.ndarray:
+    def predict(self, Xp: np.ndarray) -> np.ndarray:
         """Xp: (P, d) shared pool or (G, P, d) per-forest pools -> (G, P).
 
         Level-synchronous descent with self-looping leaves: every iteration
@@ -232,8 +235,8 @@ class BatchedForest:
         P = Xp.shape[-2]
         d = Xp.shape[-1]
         out = np.zeros((G, P), dtype=np.float64)
-        for g0 in range(0, G, chunk_forests):
-            g1 = min(G, g0 + chunk_forests)
+        for g0 in range(0, G, _CHUNK_FORESTS):
+            g1 = min(G, g0 + _CHUNK_FORESTS)
             nB = (g1 - g0) * T
             node = np.repeat(self.root[g0 * T : g1 * T], P)  # (nB*P,)
             if shared:

@@ -29,6 +29,10 @@ import numpy as np
 
 _SQRT5 = np.sqrt(5.0)
 
+#: the log-marginal-likelihood grid the hyperparameters are picked from
+_LENGTHSCALES = (0.1, 0.25, 0.6, 1.5)
+_NOISES = (1e-4, 1e-2, 1e-1)
+
 
 def matern52(a: np.ndarray, b: np.ndarray, lengthscale: float) -> np.ndarray:
     """Matérn-5/2 kernel matrix for row-vector inputs in the unit cube."""
@@ -42,17 +46,9 @@ def matern52(a: np.ndarray, b: np.ndarray, lengthscale: float) -> np.ndarray:
 class GaussianProcess:
     """Online GP for sequential model-based optimization (minimization)."""
 
-    def __init__(
-        self,
-        lengthscales: tuple[float, ...] = (0.1, 0.25, 0.6, 1.5),
-        noises: tuple[float, ...] = (1e-4, 1e-2, 1e-1),
-        max_points: int | None = None,
-    ):
-        self.lengthscales = lengthscales
-        self.noises = noises
-        self.max_points = max_points
-        self.lengthscale = lengthscales[len(lengthscales) // 2]
-        self.noise = noises[1]
+    def __init__(self):
+        self.lengthscale = _LENGTHSCALES[len(_LENGTHSCALES) // 2]
+        self.noise = _NOISES[1]
         self._X: list[np.ndarray] = []
         self._y: list[float] = []
         self._L: np.ndarray | None = None
@@ -91,8 +87,8 @@ class GaussianProcess:
         X = np.stack(self._X)
         yn = self._standardize()
         best = -np.inf
-        for ls in self.lengthscales:
-            for nz in self.noises:
+        for ls in _LENGTHSCALES:
+            for nz in _NOISES:
                 lml = self._lml(X, yn, ls, nz)
                 if lml > best:
                     best, self.lengthscale, self.noise = lml, ls, nz

@@ -323,3 +323,19 @@ def test_rf_result_comes_from_predictions(dispatch):
     assert r.final_value == _objective(r.best_config)
     assert calls[-3:] == [r.best_config] * 3
     assert session.last_record.result["best_config"] == r.best_config
+
+
+@pytest.mark.parametrize("kernel", ("add", "harris", "mandelbrot"))
+def test_search_cost_times_the_steps_rf_takes(kernel):
+    """The host-time split of ``rf`` (``cuda_bench.search_cost``) times the
+    searcher's own steps: the configs its steps rank first are the last
+    samples of the searcher's own run, and each part is timed."""
+    from repro_torch.cuda_bench.search_cost import rf_parts
+
+    parts = rf_parts(kernel, 8192, 8192, pool_size=1024)
+    for key in ("train_draw_s", "fit_s", "pool_draw_s", "predict_s", "rank_s"):
+        assert parts[key] > 0.0
+    assert parts["parts_s"] == pytest.approx(
+        sum(parts[k] for k in ("train_draw_s", "fit_s", "pool_draw_s",
+                               "predict_s", "rank_s")))
+    assert parts["screen_accepts"] == 1.0   # cuda_fit accepts all at 8192²
