@@ -32,6 +32,15 @@ Phases (any failure exits non-zero and prints no result line):
    ``grid``) through the same entry point on each kernel at 8192x8192,
    counted the same way, each winner held to the plain version and timed
    with CUDA events against the default config;
+4c. the experiment matrix through ``repro_torch.tune_matrix`` at 8192x8192
+   (backend ``cuda``, design S = 25, 50 with 4 and 2 experiments, 10 final
+   repeats, a 200-sample dataset cached on disk): harris with the paper's
+   five algorithms on the serial executor (cold; one line per cell, and the
+   share of the wall time spent drawing and copying inputs), then replayed
+   warm on the ``device`` executor from a copy of its store (no launch, the
+   same cells, byte-identical store values, no shard file left), then
+   resumed from the unit journal (no unit runs, no launch); add and
+   mandelbrot with ``rs`` and ``ga`` on the serial executor;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -44,12 +53,16 @@ Phases (any failure exits non-zero and prints no result line):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -70,6 +83,12 @@ MAIN_PATH = [("add", "ga"), ("harris", "ga"), ("mandelbrot", "ga"), ("add", "rs"
 OTHER_SEARCHERS = ("rf", "bo_gp", "bo_tpe", "sa", "pso", "grid")
 KERNELS = ("add", "harris", "mandelbrot")
 BUDGET = 40
+#: the matrix phase: a cut of the paper's design (E(S) = 20000 / S) to two
+#: sample sizes and a few experiments, at full width
+MATRIX_DESIGN = dict(sample_sizes=(25, 50), n_experiments=(4, 2), final_repeats=10)
+MATRIX_DATASET = 200
+MATRIX_ALGORITHMS = {"harris": ("rs", "rf", "ga", "bo_gp", "bo_tpe"),
+                     "add": ("rs", "ga"), "mandelbrot": ("rs", "ga")}
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate off the tensor
 #: cores, which counts an FMA as two operations; f32 operations that do not
@@ -386,6 +405,163 @@ def run_searchers() -> dict:
     return {"searchers": out, "launches": counted}
 
 
+@contextlib.contextmanager
+def timed_materialize():
+    """Counts the input materialisations inside the block and their seconds:
+    every fresh ``CudaMeasurement`` draws its inputs with numpy and copies
+    them to the card, as the reference's measurements do.  The script wraps
+    the method only to measure that share of a matrix run."""
+    import torch
+
+    from repro_torch.cuda_bench.workloads import CudaWorkload
+
+    orig = CudaWorkload.materialize
+    stats = {"n": 0, "s": 0.0}
+
+    def materialize(self, device="cpu"):
+        t0 = time.perf_counter()
+        out = orig(self, device)
+        torch.cuda.synchronize()
+        stats["n"] += 1
+        stats["s"] += time.perf_counter() - t0
+        return out
+
+    CudaWorkload.materialize = materialize
+    try:
+        yield stats
+    finally:
+        CudaWorkload.materialize = orig
+
+
+def store_values(path: str) -> str:
+    """A JSON store's measurement values, canonically: sorted ``(key,
+    value)`` pairs as JSON (journal entries carry wall-clocks and are left
+    out)."""
+    with open(path) as f:
+        raw = json.load(f)
+    values = raw["values"] if isinstance(raw, dict) and "__format__" in raw else raw
+    return json.dumps(sorted(values.items()), sort_keys=True)
+
+
+def same_cells(a, b) -> bool:
+    import numpy as np
+
+    return set(a.cells) == set(b.cells) and all(
+        np.array_equal(getattr(a.cells[k], n), getattr(b.cells[k], n))
+        for k in a.cells for n in ("final_values", "search_best_values", "n_samples_used"))
+
+
+def matrix_cold(kernel: str, tmp: str):
+    """One cold serial ``tune_matrix`` at 8192x8192, counted as the main
+    path is; its cell lines and checks.  Returns the spec, the results, the
+    kernel's launches, the run's wall seconds and its materialisations."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ExperimentDesign, RunRecord, TuningSpec, tune_matrix
+    from repro_torch.kernels import LAUNCHES
+
+    spec = TuningSpec(kernel=kernel, backend="cuda", algorithms=MATRIX_ALGORITHMS[kernel],
+                      design=ExperimentDesign(**MATRIX_DESIGN), dataset_size=MATRIX_DATASET,
+                      dataset_cache=os.path.join(tmp, f"{kernel}_dataset.npz"),
+                      store="json", store_path=os.path.join(tmp, f"{kernel}_cold.json"))
+    out_dir = os.path.join(tmp, f"{kernel}_out")
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    with timed_materialize() as inputs:
+        results = tune_matrix(spec, out_dir=out_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    record = RunRecord.load(os.path.join(out_dir, f"{spec.default_cache_key().replace('/', '_')}.json"))
+    walls = {(w["algo"], w["sample_size"]): w for w in record.extra["cell_wall_s"]}
+    for (algo, s), cell in sorted(results.cells.items()):
+        w = walls[(algo, s)]
+        print(f"matrix {kernel}/{algo} S={s}: "
+              f"median_final_ms={float(np.median(cell.final_values)) * 1e3!r} "
+              f"best_final_ms={float(cell.final_values.min()) * 1e3!r} "
+              f"n_samples_used={cell.n_samples_used.tolist()} wall_s={w['wall_s']} "
+              f"compile_s={w['compile_s']} measure_s={w['measure_s']}")
+        require(cell.n_samples_used.tolist() == [s] * len(cell.n_samples_used),
+                f"matrix {kernel}/{algo} S={s}: samples {cell.n_samples_used.tolist()}")
+        require(bool(np.isfinite(cell.final_values).all()),
+                f"matrix {kernel}/{algo} S={s}: finals {cell.final_values.tolist()}")
+    prov = record.extra["backend_provenance"]
+    print(f"matrix {kernel} cold serial: wall_s={wall:.3f} launches={got} "
+          f"materialised={inputs['n']} materialise_s={inputs['s']:.3f} "
+          f"({100 * inputs['s'] / wall:.1f} % of wall) device_kind={prov['device_kind']!r}")
+    require(got[kernel] > 0, f"matrix {kernel}: the cold run launched no kernel")
+    require(all(n == 0 for k, n in got.items() if k != kernel), got)
+    require(prov["device"] == "cuda" and prov["device_kind"] == torch.cuda.get_device_name(0),
+            f"matrix {kernel}: provenance {prov}")
+    return spec, results, got[kernel], dict(wall_s=wall, materialised=inputs["n"],
+                                            materialise_s=inputs["s"])
+
+
+def run_matrix_phase() -> dict:
+    """Phase 4c: the experiment matrix on the card.  Harris cold on the
+    serial executor, replayed warm on the device executor, then resumed from
+    its journal; add and mandelbrot cold.  Each run's counts are set to 0
+    just before it and read just after."""
+    import warnings
+
+    import torch
+
+    from repro_torch import TuningSession, tune_matrix
+    from repro_torch.kernels import LAUNCHES
+
+    counted, stats = {k: 0 for k in KERNELS}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec, cold, n, stats["harris"] = matrix_cold("harris", tmp)
+        counted["harris"] += n
+
+        # warm replay: one worker per card; asking for two on a one-card
+        # host caps to one thread (with a warning) rather than degrading to
+        # the serial loop, so the executor's pinned thread does the work
+        warm_spec = spec.replace(store_path=os.path.join(tmp, "harris_warm.json"))
+        shutil.copy(spec.store_path, warm_spec.store_path)
+        workers = max(2, torch.cuda.device_count())
+        for c in LAUNCHES.values():
+            c.n = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            warm = tune_matrix(warm_spec, executor="device", max_workers=workers)
+        torch.cuda.synchronize()
+        got = {k: c.n for k, c in LAUNCHES.items()}
+        shards = [f for f in os.listdir(tmp) if ".shard" in f]
+        same_store = store_values(warm_spec.store_path) == store_values(spec.store_path)
+        print(f"matrix harris warm device executor ({workers} workers asked, "
+              f"{torch.cuda.device_count()} card(s)): wall_s={time.perf_counter() - t0:.3f} "
+              f"launches={got} same_cells={same_cells(cold, warm)} "
+              f"store_values_identical={same_store} shard_files={shards} "
+              f"warnings={[str(w.message) for w in caught]}")
+        require(all(n == 0 for n in got.values()), f"matrix warm replay launched {got}")
+        require(same_cells(cold, warm), "matrix warm replay: cells differ from the cold run")
+        require(same_store, "matrix warm replay: store values differ from the cold run")
+        require(not shards, f"matrix warm replay left shard files {shards}")
+
+        # resume: every unit from the journal, so no unit runs at all
+        for c in LAUNCHES.values():
+            c.n = 0
+        t0 = time.perf_counter()
+        session = TuningSession(warm_spec)
+        resumed = session.run_matrix(resume=True)
+        got = {k: c.n for k, c in LAUNCHES.items()}
+        print(f"matrix harris resume: wall_s={time.perf_counter() - t0:.3f} launches={got} "
+              f"units={len(session.last_unit_plan)} units_run={int(session.measurement is not None)} "
+              f"same_cells={same_cells(cold, resumed)}")
+        require(all(n == 0 for n in got.values()), f"matrix resume launched {got}")
+        require(session.measurement is None, "matrix resume ran a unit")
+        require(same_cells(cold, resumed), "matrix resume: cells differ from the cold run")
+
+        for kernel in ("add", "mandelbrot"):
+            _, _, n, stats[kernel] = matrix_cold(kernel, tmp)
+            counted[kernel] += n
+    return {"launches": counted, "stats": stats}
+
+
 def time_add_paths(a, b, winner: dict) -> dict:
     """add's vector and scalar paths on the same aligned inputs, each launched
     through its C entry point (uncounted: these launches are not the main
@@ -543,8 +719,17 @@ def main() -> int:
         require(smem <= bench.smem_bytes, f"{name}: compiled smem {smem} > screened")
 
     max_err, n_diff = check_kernels()                 # 3.
+    phase_s = {}
+    t0 = time.perf_counter()
     main_path = run_main_path()                       # 4.
+    phase_s["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     searchers = run_searchers()                       # 4b.
+    phase_s["searchers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    matrix = run_matrix_phase()                       # 4c.
+    phase_s["matrix"] = time.perf_counter() - t0
+    print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 
     # 6. summary lines
@@ -554,9 +739,11 @@ def main() -> int:
         t = times[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_path["launches"][name] + searchers["launches"][name],
+            "launches": (main_path["launches"][name] + searchers["launches"][name]
+                         + matrix["launches"][name]),
             "launches_by_phase": {"main": main_path["launches"][name],
-                                  "searchers": searchers["launches"][name]},
+                                  "searchers": searchers["launches"][name],
+                                  "matrix": matrix["launches"][name]},
             "max_abs_err": max_err[name],
             "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -566,6 +753,7 @@ def main() -> int:
                if k in t},
             "tuned_config": main_path["winners"][name], "tuner": main_path["tuner"][name],
             "searchers": searchers["searchers"][name],
+            "matrix": matrix["stats"][name],
             "status": "ok",
         })
     print(f"gpu: {gpu_line()}")

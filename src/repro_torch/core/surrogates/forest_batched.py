@@ -58,12 +58,22 @@ class BatchedForest:
         self.n_forests = 0
 
     # ------------------------------------------------------------------ fit
-    def fit(self, X: np.ndarray, y: np.ndarray) -> "BatchedForest":
+    def fit(
+        self,
+        X: np.ndarray,
+        y: np.ndarray,
+        bootstrap_idx: np.ndarray | None = None,
+    ) -> "BatchedForest":
         """X: (G, n, d) integer indices; y: (G, n).
 
-        The per-tree resampling rows are drawn from ``seed`` in one
-        ``integers(0, n, (G*T, n))`` call; forest ``g`` uses rows
-        ``[g*T, (g+1)*T)``.
+        ``bootstrap_idx`` optionally supplies the per-tree resampling rows,
+        shape ``(G * n_estimators, n)`` — forest ``g`` uses rows
+        ``[g*T, (g+1)*T)``.  The work-unit layer uses this to fit a SLICE of
+        an experiment cell with the exact draws the full-cell fit would
+        have used, keeping within-cell splits bit-identical.  Default:
+        drawn here from ``seed`` (one ``integers(0, n, (G*T, n))`` call, so
+        an external draw of the full cell sliced to ``[lo*T, hi*T)``
+        reproduces it exactly).
         """
         X = np.asarray(X)
         y = np.asarray(y, dtype=np.float64)
@@ -75,8 +85,15 @@ class BatchedForest:
         self.n_forests = G
 
         # bootstrap: each tree resamples n rows from its forest's data
-        rng = np.random.default_rng(self.seed)
-        samp = rng.integers(0, n, size=(B, n))
+        if bootstrap_idx is None:
+            rng = np.random.default_rng(self.seed)
+            samp = rng.integers(0, n, size=(B, n))
+        else:
+            samp = np.asarray(bootstrap_idx)
+            if samp.shape != (B, n):
+                raise ValueError(
+                    f"bootstrap_idx shape {samp.shape} != ({B}, {n})"
+                )
         forest_of_tree = np.repeat(np.arange(G), T)
         Xb = X[forest_of_tree[:, None], samp]          # (B, n, d)
         yb = y[forest_of_tree[:, None], samp]          # (B, n)

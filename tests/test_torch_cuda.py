@@ -134,3 +134,47 @@ def test_cuda_tune_runs_each_searcher_on_the_card(card, searcher):
     assert LAUNCHES["add"].n == LAUNCHES["mandelbrot"].n == 0
     if searcher == "rf":
         assert result.best_config in result.history_configs[-10:]
+
+
+def test_cuda_matrix_replays_warm_on_the_device_executor(card, tmp_path):
+    """A small harris matrix at 1000x1001: the cold serial run launches the
+    kernel; the warm replay on the device executor (two workers asked for,
+    so its threads run even on a one-card host) launches nothing, gives the
+    same cells and leaves the store's values byte-identical."""
+    import json
+    import shutil
+    import warnings
+
+    from repro_torch import ExperimentDesign, tune_matrix
+    from repro_torch.core import MeasurementStore
+
+    cold_path, warm_path = str(tmp_path / "cold.json"), str(tmp_path / "warm.json")
+    spec = TuningSpec(
+        kernel="harris", backend="cuda", algorithms=("rs", "rf", "ga"),
+        backend_kwargs={"x": 1000, "y": 1001, "repeats": 2},
+        design=ExperimentDesign(sample_sizes=(12,), n_experiments=(2,), final_repeats=3),
+        dataset_size=40, dataset_cache=str(tmp_path / "dataset.npz"),
+        store="json", store_path=cold_path,
+    )
+    LAUNCHES["harris"].n = 0
+    cold = tune_matrix(spec)
+    torch.cuda.synchronize()
+    assert LAUNCHES["harris"].n > 0
+    shutil.copy(cold_path, warm_path)
+    LAUNCHES["harris"].n = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # one card: two workers capped
+        warm = tune_matrix(spec.replace(store_path=warm_path), executor="device",
+                           max_workers=max(2, torch.cuda.device_count()))
+    assert LAUNCHES["harris"].n == 0
+    for key, cell in cold.cells.items():
+        assert (cell.n_samples_used == 12).all()
+        assert torch.isfinite(torch.from_numpy(cell.final_values)).all()
+        for name in ("final_values", "search_best_values", "n_samples_used"):
+            assert (getattr(cell, name) == getattr(warm.cells[key], name)).all()
+
+    def values(path):
+        return json.dumps(sorted(MeasurementStore(path).items()), sort_keys=True)
+
+    assert values(warm_path) == values(cold_path)
+    assert not [f for f in tmp_path.iterdir() if ".shard" in f.name]

@@ -142,20 +142,31 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
         assert json.load(f) == raw           # loading never rewrites the file
 
 
+#: modules the matrix slice added; the walk below must reach each of them
+MATRIX_MODULES = (
+    "repro_torch.core.dataset", "repro_torch.core.executors",
+    "repro_torch.core.experiment", "repro_torch.core.runner",
+    "repro_torch.core.stores", "repro_torch.core.workunits",
+    "repro_torch.costmodel", "repro_torch.costmodel.kernel_cost",
+    "repro_torch.costmodel.noise", "repro_torch.costmodel.tpu",
+)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {MATRIX_MODULES!r} if m not in sys.modules]\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20, out.stdout
+    assert n_modules >= 30, out.stdout
