@@ -40,7 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
    warm on the ``device`` executor from a copy of its store (no launch, the
    same cells, byte-identical store values, no shard file left), then
    resumed from the unit journal (no unit runs, no launch); add and
-   mandelbrot with ``rs`` and ``ga`` on the serial executor;
+   mandelbrot with ``rs`` and ``ga`` on the serial executor; the three
+   write their results into one directory as combos ``<kernel>/h100``;
+4d. stores and analysis: harris's cold JSON store copied into a sqlite
+   store (values, unit journal, winners), the matrix replayed warm from it
+   with ``store="sqlite"`` on the ``device`` executor (no launch, the cold
+   run's cells, byte-identical store values, no shard file left) and
+   resumed from its journal (no unit runs); then ``generate_report`` over
+   the results directory: each claim's verdict line, the speedup-over-RS
+   rows, the provenance (backend ``cuda``, the card, the code's version),
+   a figure per plot where matplotlib is installed and the "tables only"
+   line where it is not, and ``python -m repro_torch.analysis`` on the same
+   directory in a process of its own;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -89,6 +100,10 @@ MATRIX_DESIGN = dict(sample_sizes=(25, 50), n_experiments=(4, 2), final_repeats=
 MATRIX_DATASET = 200
 MATRIX_ALGORITHMS = {"harris": ("rs", "rf", "ga", "bo_gp", "bo_tpe"),
                      "add": ("rs", "ga"), "mandelbrot": ("rs", "ga")}
+#: the matrices' combo names are ``<kernel>/<CARD_TAG>``: the analysis layer
+#: reads ``<bench>_<chip>.npz`` and splits the name at its last ``_``, so the
+#: tag holds none (phase 1 requires compute capability 9.0)
+CARD_TAG = "h100"
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 rate off the tensor
 #: cores, which counts an FMA as two operations; f32 operations that do not
@@ -464,8 +479,9 @@ def matrix_cold(kernel: str, tmp: str):
     spec = TuningSpec(kernel=kernel, backend="cuda", algorithms=MATRIX_ALGORITHMS[kernel],
                       design=ExperimentDesign(**MATRIX_DESIGN), dataset_size=MATRIX_DATASET,
                       dataset_cache=os.path.join(tmp, f"{kernel}_dataset.npz"),
-                      store="json", store_path=os.path.join(tmp, f"{kernel}_cold.json"))
-    out_dir = os.path.join(tmp, f"{kernel}_out")
+                      store="json", store_path=os.path.join(tmp, f"{kernel}_cold.json"),
+                      cache_key=f"{kernel}/{CARD_TAG}")
+    out_dir = results_dir(tmp)
     for c in LAUNCHES.values():
         c.n = 0
     t0 = time.perf_counter()
@@ -474,7 +490,7 @@ def matrix_cold(kernel: str, tmp: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: c.n for k, c in LAUNCHES.items()}
-    record = RunRecord.load(os.path.join(out_dir, f"{spec.default_cache_key().replace('/', '_')}.json"))
+    record = RunRecord.load(os.path.join(out_dir, f"{kernel}_{CARD_TAG}.json"))
     walls = {(w["algo"], w["sample_size"]): w for w in record.extra["cell_wall_s"]}
     for (algo, s), cell in sorted(results.cells.items()):
         w = walls[(algo, s)]
@@ -499,7 +515,12 @@ def matrix_cold(kernel: str, tmp: str):
                                             materialise_s=inputs["s"])
 
 
-def run_matrix_phase() -> dict:
+def results_dir(tmp: str) -> str:
+    """The one results directory the three cold matrices write into."""
+    return os.path.join(tmp, "results")
+
+
+def run_matrix_phase(tmp: str) -> dict:
     """Phase 4c: the experiment matrix on the card.  Harris cold on the
     serial executor, replayed warm on the device executor, then resumed from
     its journal; add and mandelbrot cold.  Each run's counts are set to 0
@@ -512,54 +533,170 @@ def run_matrix_phase() -> dict:
     from repro_torch.kernels import LAUNCHES
 
     counted, stats = {k: 0 for k in KERNELS}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        spec, cold, n, stats["harris"] = matrix_cold("harris", tmp)
-        counted["harris"] += n
+    spec, cold, n, stats["harris"] = matrix_cold("harris", tmp)
+    counted["harris"] += n
 
-        # warm replay: one worker per card; asking for two on a one-card
-        # host caps to one thread (with a warning) rather than degrading to
-        # the serial loop, so the executor's pinned thread does the work
-        warm_spec = spec.replace(store_path=os.path.join(tmp, "harris_warm.json"))
-        shutil.copy(spec.store_path, warm_spec.store_path)
-        workers = max(2, torch.cuda.device_count())
-        for c in LAUNCHES.values():
-            c.n = 0
-        t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            warm = tune_matrix(warm_spec, executor="device", max_workers=workers)
-        torch.cuda.synchronize()
-        got = {k: c.n for k, c in LAUNCHES.items()}
-        shards = [f for f in os.listdir(tmp) if ".shard" in f]
-        same_store = store_values(warm_spec.store_path) == store_values(spec.store_path)
-        print(f"matrix harris warm device executor ({workers} workers asked, "
-              f"{torch.cuda.device_count()} card(s)): wall_s={time.perf_counter() - t0:.3f} "
-              f"launches={got} same_cells={same_cells(cold, warm)} "
-              f"store_values_identical={same_store} shard_files={shards} "
-              f"warnings={[str(w.message) for w in caught]}")
-        require(all(n == 0 for n in got.values()), f"matrix warm replay launched {got}")
-        require(same_cells(cold, warm), "matrix warm replay: cells differ from the cold run")
-        require(same_store, "matrix warm replay: store values differ from the cold run")
-        require(not shards, f"matrix warm replay left shard files {shards}")
+    # warm replay: one worker per card; asking for two on a one-card
+    # host caps to one thread (with a warning) rather than degrading to
+    # the serial loop, so the executor's pinned thread does the work
+    warm_spec = spec.replace(store_path=os.path.join(tmp, "harris_warm.json"))
+    shutil.copy(spec.store_path, warm_spec.store_path)
+    workers = max(2, torch.cuda.device_count())
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        warm = tune_matrix(warm_spec, executor="device", max_workers=workers)
+    torch.cuda.synchronize()
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    shards = [f for f in os.listdir(tmp) if ".shard" in f]
+    same_store = store_values(warm_spec.store_path) == store_values(spec.store_path)
+    print(f"matrix harris warm device executor ({workers} workers asked, "
+          f"{torch.cuda.device_count()} card(s)): wall_s={time.perf_counter() - t0:.3f} "
+          f"launches={got} same_cells={same_cells(cold, warm)} "
+          f"store_values_identical={same_store} shard_files={shards} "
+          f"warnings={[str(w.message) for w in caught]}")
+    require(all(n == 0 for n in got.values()), f"matrix warm replay launched {got}")
+    require(same_cells(cold, warm), "matrix warm replay: cells differ from the cold run")
+    require(same_store, "matrix warm replay: store values differ from the cold run")
+    require(not shards, f"matrix warm replay left shard files {shards}")
 
-        # resume: every unit from the journal, so no unit runs at all
-        for c in LAUNCHES.values():
-            c.n = 0
-        t0 = time.perf_counter()
-        session = TuningSession(warm_spec)
-        resumed = session.run_matrix(resume=True)
-        got = {k: c.n for k, c in LAUNCHES.items()}
-        print(f"matrix harris resume: wall_s={time.perf_counter() - t0:.3f} launches={got} "
-              f"units={len(session.last_unit_plan)} units_run={int(session.measurement is not None)} "
-              f"same_cells={same_cells(cold, resumed)}")
-        require(all(n == 0 for n in got.values()), f"matrix resume launched {got}")
-        require(session.measurement is None, "matrix resume ran a unit")
-        require(same_cells(cold, resumed), "matrix resume: cells differ from the cold run")
+    # resume: every unit from the journal, so no unit runs at all
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    session = TuningSession(warm_spec)
+    resumed = session.run_matrix(resume=True)
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    print(f"matrix harris resume: wall_s={time.perf_counter() - t0:.3f} launches={got} "
+          f"units={len(session.last_unit_plan)} units_run={int(session.measurement is not None)} "
+          f"same_cells={same_cells(cold, resumed)}")
+    require(all(n == 0 for n in got.values()), f"matrix resume launched {got}")
+    require(session.measurement is None, "matrix resume ran a unit")
+    require(same_cells(cold, resumed), "matrix resume: cells differ from the cold run")
 
-        for kernel in ("add", "mandelbrot"):
-            _, _, n, stats[kernel] = matrix_cold(kernel, tmp)
-            counted[kernel] += n
-    return {"launches": counted, "stats": stats}
+    for kernel in ("add", "mandelbrot"):
+        _, _, n, stats[kernel] = matrix_cold(kernel, tmp)
+        counted[kernel] += n
+    return {"launches": counted, "stats": stats, "harris": (spec, cold)}
+
+
+def sqlite_values(path: str) -> str:
+    """A sqlite store's measurement values in :func:`store_values`' form."""
+    from repro_torch import make_store
+
+    store = make_store("sqlite", path)
+    try:
+        return json.dumps(sorted(store.items()), sort_keys=True)
+    finally:
+        store.close()
+
+
+def run_stores_phase(tmp: str, spec, cold) -> None:
+    """Phase 4d: harris's cold JSON store copied into sqlite, the matrix
+    replayed warm from it on the device executor and resumed from its
+    journal, each with the counts set to 0 just before and read just after;
+    then the report over the three cold matrices' results directory, and
+    the report's command line in a process of its own."""
+    import warnings
+
+    import torch
+
+    import repro_torch
+    from repro_torch import TuningSession, make_store, tune_matrix
+    from repro_torch.analysis import (
+        HAVE_MATPLOTLIB,
+        check_claims,
+        generate_report,
+        load_all,
+        speedup_with_ci,
+    )
+    from repro_torch.core.executors import absorb_store
+    from repro_torch.kernels import LAUNCHES
+
+    # sqlite warm replay from a copy of the cold store: values, the unit
+    # journal (metadata) and winners
+    lite_spec = spec.replace(store="sqlite", store_path=os.path.join(tmp, "harris_warm.sqlite"))
+    lite = make_store("sqlite", lite_spec.store_path)
+    absorb_store(lite, "json", spec.store_path)
+    n_copied = len(lite)
+    lite.close()
+    workers = max(2, torch.cuda.device_count())
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        warm = tune_matrix(lite_spec, executor="device", max_workers=workers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    shards = [f for f in os.listdir(tmp) if ".shard" in f]
+    same_store = sqlite_values(lite_spec.store_path) == store_values(spec.store_path)
+    print(f"stores harris sqlite warm device executor: wall_s={wall:.3f} "
+          f"values_copied={n_copied} launches={got} same_cells={same_cells(cold, warm)} "
+          f"store_values_identical={same_store} shard_files={shards} "
+          f"warnings={[str(w.message) for w in caught]}")
+    require(n_copied > 0, "stores: the sqlite copy holds no value")
+    require(all(n == 0 for n in got.values()), f"stores: sqlite warm replay launched {got}")
+    require(same_cells(cold, warm), "stores: sqlite warm replay cells differ from the cold run")
+    require(same_store, "stores: sqlite store values differ from the cold JSON store")
+    require(not shards, f"stores: sqlite warm replay left shard files {shards}")
+
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    session = TuningSession(lite_spec)
+    resumed = session.run_matrix(resume=True)
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    print(f"stores harris sqlite resume: wall_s={time.perf_counter() - t0:.3f} launches={got} "
+          f"units={len(session.last_unit_plan)} units_run={int(session.measurement is not None)} "
+          f"same_cells={same_cells(cold, resumed)}")
+    require(all(n == 0 for n in got.values()), f"stores: sqlite resume launched {got}")
+    require(session.measurement is None, "stores: sqlite resume ran a unit")
+    require(same_cells(cold, resumed), "stores: sqlite resume cells differ from the cold run")
+
+    # the report over the three cold matrices
+    out = results_dir(tmp)
+    t0 = time.perf_counter()
+    path = generate_report(out)
+    report_s = time.perf_counter() - t0
+    results = load_all(out)
+    require(sorted(results) == [(k, CARD_TAG) for k in sorted(KERNELS)],
+            f"report: combos {sorted(results)}")
+    claims = check_claims(results)
+    for v in claims.values():
+        print(f"report claim {v}")
+    require(all(v.status in ("pass", "fail", "insufficient-data") for v in claims.values()),
+            f"report: claim statuses {[v.status for v in claims.values()]}")
+    for (bench, chip), algos in sorted(speedup_with_ci(results).items()):
+        for algo, row in algos.items():
+            print(f"report speedup over rs {bench} x {chip} {algo}: " + " ".join(
+                f"S={s}: {m!r} [{lo!r}, {hi!r}]" for s, (m, lo, hi) in sorted(row.items())))
+    with open(path) as f:
+        text = f.read()
+    start = text.index("## Provenance")
+    provenance = text[start:text.index("\n## ", start + 1)]
+    kind = torch.cuda.get_device_name(0)
+    for want in ("| cuda |", f'"device_kind": "{kind}"', f"| {repro_torch.__version__}"):
+        require(want in provenance, f"report: provenance lacks {want!r}:\n{provenance}")
+    figures = sorted(os.listdir(os.path.join(out, "figures"))) if HAVE_MATPLOTLIB else []
+    if HAVE_MATPLOTLIB:
+        require(figures == ["pct_of_optimum.png", "rank_heatmap.png",
+                            "speedup_vs_sample_size.png"], f"report: figures {figures}")
+    else:
+        require("(matplotlib unavailable — tables only)" in text, "report: no tables-only line")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", out, "--out",
+         os.path.join(tmp, "REPORT_cli.md")],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    print(f"report: wall_s={report_s:.3f} claims={len(claims)} "
+          f"decided={sum(v.status != 'insufficient-data' for v in claims.values())} "
+          f"matplotlib={HAVE_MATPLOTLIB} figures={figures} bytes={len(text)} "
+          f"cli_exit={cli.returncode} {cli.stdout.strip()!r}")
+    require(cli.returncode == 0, f"report CLI: exit {cli.returncode}: {cli.stderr[-2000:]}")
 
 
 def time_add_paths(a, b, winner: dict) -> dict:
@@ -726,9 +863,13 @@ def main() -> int:
     t0 = time.perf_counter()
     searchers = run_searchers()                       # 4b.
     phase_s["searchers"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    matrix = run_matrix_phase()                       # 4c.
-    phase_s["matrix"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        matrix = run_matrix_phase(tmp)                # 4c.
+        phase_s["matrix"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_stores_phase(tmp, *matrix["harris"])      # 4d.
+        phase_s["stores"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 

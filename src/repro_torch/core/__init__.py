@@ -1,9 +1,11 @@
 """The port's tuning core: search space, searchers, engine, measurement
-protocol, backends, the experiment matrix (work units, executors, sample
-dataset) and the ``tune`` / ``tune_matrix`` facade — copies of
-``repro.core``'s pure-Python modules, so one seed proposes one config
-sequence, and one spec gives one matrix, in both packages."""
+protocol, backends, stores, the experiment matrix (work units, executors,
+sample dataset), the paper's statistics and the ``tune`` / ``tune_matrix``
+facade — copies of ``repro.core``'s pure-Python modules, so one seed
+proposes one config sequence, and one spec gives one matrix, in both
+packages."""
 
+from . import stats
 from .api import (
     RunRecord,
     TuningSession,
@@ -17,7 +19,14 @@ from .dataset import SampleDataset
 from .engine import DiskCachedMeasurement, MeasurementStore, config_key, drive
 from .executors import EXECUTORS, Executor, register_executor
 from .experiment import ExperimentDesign
-from .measurement import BaseMeasurement, CallableMeasurement, StageClock, fence
+from .measurement import (
+    BaseMeasurement,
+    CachedMeasurement,
+    CallableMeasurement,
+    StageClock,
+    TimingMeasurement,
+    fence,
+)
 from .runner import CellResult, MatrixResults, stable_seed
 from .searchers import (
     EXTRA_ALGORITHMS,
@@ -28,7 +37,7 @@ from .searchers import (
     make_searcher,
 )
 from .space import Param, SearchSpace, paper_space
-from .stores import STORES, make_store
+from .stores import STORES, SqliteMeasurementStore, make_store
 from .workunits import (
     ExperimentUnit,
     UnitJournal,
@@ -41,6 +50,7 @@ __all__ = [
     "BACKENDS",
     "Backend",
     "BaseMeasurement",
+    "CachedMeasurement",
     "CallableMeasurement",
     "CellResult",
     "DiskCachedMeasurement",
@@ -58,8 +68,10 @@ __all__ = [
     "STORES",
     "SampleDataset",
     "SearchSpace",
+    "SqliteMeasurementStore",
     "Searcher",
     "StageClock",
+    "TimingMeasurement",
     "TuningResult",
     "TuningSession",
     "TuningSpec",
@@ -78,6 +90,7 @@ __all__ = [
     "register_constraint",
     "register_executor",
     "stable_seed",
+    "stats",
     "tune",
     "tune_matrix",
 ]

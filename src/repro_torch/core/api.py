@@ -36,10 +36,12 @@ Example::
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import platform
 import socket
+import subprocess
 import warnings
 from dataclasses import dataclass, field, replace
 from datetime import datetime, timezone
@@ -48,6 +50,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import __version__
 from .backends import BACKENDS, make_measurement
 from .clock import monotonic
 from .dataset import SampleDataset
@@ -315,6 +318,32 @@ class TuningSpec:
 # ----------------------------------------------------------------- RunRecord
 
 
+@functools.cache
+def _git_state() -> dict:
+    """Best-effort code provenance: the checkout's commit SHA and a dirty
+    flag, read once per process (two ``git`` calls).  ``{}`` outside a git
+    checkout or without a ``git`` binary — records never *depend* on it, it
+    only answers "which code produced this result" when it can."""
+    state: dict = {}
+    try:
+        root = os.path.dirname(os.path.abspath(__file__))
+        sha = subprocess.run(
+            ["git", "rev-parse", "HEAD"],
+            cwd=root, capture_output=True, text=True, timeout=5,
+        )
+        if sha.returncode == 0 and sha.stdout.strip():
+            state["git_sha"] = sha.stdout.strip()
+            st = subprocess.run(
+                ["git", "status", "--porcelain"],
+                cwd=root, capture_output=True, text=True, timeout=5,
+            )
+            if st.returncode == 0:
+                state["git_dirty"] = bool(st.stdout.strip())
+    except (OSError, subprocess.SubprocessError):
+        state = {}
+    return state
+
+
 def _provenance(wall_s: float | None = None) -> dict:
     p = {
         # a provenance timestamp SHOULD be the real wall clock; results never
@@ -327,7 +356,9 @@ def _provenance(wall_s: float | None = None) -> dict:
         "python": platform.python_version(),
         "numpy": np.__version__,
         "torch": torch.__version__,
+        "repro_version": __version__,
     }
+    p.update(_git_state())
     if wall_s is not None:
         p["wall_s"] = round(float(wall_s), 3)
     return p
@@ -621,6 +652,16 @@ class TuningSession:
             name = "process" if workers > 1 else "serial"
         if name not in EXECUTORS:
             raise KeyError(f"unknown executor {name!r}; have {sorted(EXECUTORS)}")
+        if name == "process" and workers > 1 and self._times_on_card():
+            cards = torch.cuda.device_count()
+            if workers > cards:
+                raise ValueError(
+                    f"executor 'process' with {workers} workers on {cards} "
+                    "card(s): each worker opens its own CUDA context, so "
+                    "workers sharing a card time each other's kernels; use "
+                    "executor='serial', or executor='device' (one thread "
+                    "per card)"
+                )
         # the stealing scheduler wants more units than workers so the queue
         # can rebalance around stragglers; the static schedule keeps the
         # one-unit-per-worker floor
@@ -680,6 +721,11 @@ class TuningSession:
         self.save_store()
         self.last_record = self.make_record(results, wall_s=monotonic() - t0)
         return results
+
+    def _times_on_card(self) -> bool:
+        """Whether this spec's measurements time kernels on a CUDA card."""
+        device = self.spec.backend_kwargs.get("device", "cuda")
+        return self.spec.backend == "cuda" and torch.device(device).type == "cuda"
 
     # -- the work-unit layer --------------------------------------------------
     def _unit_cost(self) -> Callable[[ExperimentUnit], float]:

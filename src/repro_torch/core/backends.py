@@ -9,6 +9,15 @@ of ``repro.core.backends``).
   provides the default space (executable configs) and the noise-free true
   optimum.  Its values are modelled TPU seconds, never a time of the card.
 * ``"callable"`` — wraps any ``f(config) -> seconds`` objective.
+* ``"timing"``   — wall-clock of a real callable (``runner=..., warmup=...``),
+  fenced, for custom objectives the ``cuda`` backend doesn't cover.
+* ``"cached"``   — in-memory memoization of an ``inner`` backend (paper: a
+  config is measured once during search).
+* ``"disk"``     — persistent memoization of an ``inner`` backend through a
+  measurement store (``store="json"|"sqlite"``, ``store_path=...``).
+
+``inner`` is either a backend *name* (resolved recursively, with
+``inner_kwargs``) or an already-built measurement instance.
 """
 
 from __future__ import annotations
@@ -16,7 +25,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from .measurement import BaseMeasurement, CallableMeasurement
+from .engine import DiskCachedMeasurement
+from .measurement import (
+    BaseMeasurement,
+    CachedMeasurement,
+    CallableMeasurement,
+    TimingMeasurement,
+)
 from .space import SearchSpace
 
 
@@ -129,7 +144,17 @@ def _cuda_space(kernel: str = "add", **kwargs) -> SearchSpace:
     )
 
 
-# ---------------------------------------------------------------- callable
+# --------------------------------------------------------------- wrappers
+
+
+def _make_timing(
+    kernel: str | None = None,
+    seed: int = 0,
+    *,
+    runner: Callable,
+    warmup: int = 1,
+) -> BaseMeasurement:
+    return TimingMeasurement(runner, warmup=warmup)
 
 
 def _make_callable(
@@ -142,6 +167,47 @@ def _make_callable(
     return CallableMeasurement(fn, batch_fn=batch_fn)
 
 
+def _resolve_inner(inner, inner_kwargs, kernel, seed) -> BaseMeasurement:
+    if isinstance(inner, str):
+        return make_measurement(inner, kernel=kernel, seed=seed, **(inner_kwargs or {}))
+    if isinstance(inner, BaseMeasurement):
+        return inner
+    raise TypeError(
+        f"inner must be a backend name or a BaseMeasurement, got {type(inner).__name__}"
+    )
+
+
+def _make_cached(
+    kernel: str | None = None,
+    seed: int = 0,
+    *,
+    inner,
+    inner_kwargs: dict | None = None,
+) -> BaseMeasurement:
+    return CachedMeasurement(_resolve_inner(inner, inner_kwargs, kernel, seed))
+
+
+def _make_disk(
+    kernel: str | None = None,
+    seed: int = 0,
+    *,
+    inner,
+    inner_kwargs: dict | None = None,
+    store="json",
+    store_path: str | None = None,
+    prefix: str | None = None,
+) -> BaseMeasurement:
+    from .stores import make_store
+
+    if isinstance(store, str):
+        store = make_store(store, store_path)
+    if prefix is None:
+        prefix = f"{kernel or 'objective'}/seed={seed}"
+    return DiskCachedMeasurement(
+        _resolve_inner(inner, inner_kwargs, kernel, seed), store, prefix
+    )
+
+
 register_backend(
     Backend(
         name="costmodel",
@@ -151,4 +217,7 @@ register_backend(
     )
 )
 register_backend(Backend(name="cuda", make=_make_cuda, default_space=_cuda_space))
+register_backend(Backend(name="timing", make=_make_timing, serializable=False))
 register_backend(Backend(name="callable", make=_make_callable, serializable=False))
+register_backend(Backend(name="cached", make=_make_cached))
+register_backend(Backend(name="disk", make=_make_disk))

@@ -13,17 +13,18 @@ fragments the session merges deterministically by unit key.  Built-ins:
   the shared submit queue.  Each worker writes to its own
   ``store_path.<ns8>.shard<pid>`` (seeded from the warm parent store),
   journals completed units into it, and the parent glob-merges shard stores
-  when the pool joins.  Each worker opens its own CUDA context: on one card
-  concurrent workers time each other's kernels, so timing runs on one card
-  use ``serial`` or ``device``.
+  when the pool joins.  Each worker opens its own CUDA context, so on one
+  card concurrent workers would time each other's kernels: the session
+  refuses more ``process`` workers than cards for the ``cuda`` backend on
+  the card; timing runs use ``serial`` or ``device``.
 * ``"futures"`` — the grouped worker payload submitted to ANY
   ``concurrent.futures.Executor`` (``run_matrix(futures_pool=...)``); without
   one a spawn-context ``ProcessPoolExecutor`` is created for the call.  The
   payload is ``(spec_dict, unit dicts, store paths)`` and results come back
   as plain JSON-able dicts.  Under the stealing scheduler every payload
   carries exactly one unit (one session rebuild per unit).
-* ``"device"``  — fan-out over the CUDA cards WITHIN one process: worker
-  threads, each pinned to one card of :func:`cuda_devices` with
+* ``"device"``  — fan-out over the CUDA cards WITHIN one process: one
+  dedicated thread per card of :func:`cuda_devices`, pinned to it with
   ``torch.cuda.device``, with one shard store per card.  The pin holds
   around building a thread's session and around every unit, since
   :class:`~repro_torch.cuda_bench.CudaMeasurement` fixes its card when it is
@@ -49,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import os
 import re
+import threading
 import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable
@@ -162,6 +164,15 @@ def absorb_store(dst, kind: str, path: str) -> None:
     dst.update(src.items())
     dst.update_meta(src.meta_items())
     absorb_winners(dst, src)
+    close_store(src)
+
+
+def close_store(store) -> None:
+    """Release a store's file handle where it holds one (sqlite): a shard
+    file is deleted after its merge, and an open sqlite connection would
+    leave its ``-wal`` / ``-shm`` companions behind."""
+    if hasattr(store, "close"):
+        store.close()
 
 
 def merge_shard_stores(session, paths: list[str]) -> None:
@@ -188,10 +199,12 @@ def recover_shard_stores(session) -> int:
     base = session._store_path
     if session.store is None or base is None:
         return 0
-    # the namespace digest scopes recovery to THIS spec's shards
+    # the namespace digest scopes recovery to THIS spec's shards; a sqlite
+    # shard's -wal / -shm / -journal companions are read through the shard
+    # itself, never absorbed as stores of their own
     pattern = re.compile(
         re.escape(f"{os.path.basename(base)}.{shard_namespace(session)}")
-        + r"\.shard[A-Za-z0-9_-]+$"
+        + r"\.shard[A-Za-z0-9_-]+(?<!-wal)(?<!-shm)(?<!-journal)$"
     )
     d = os.path.dirname(base) or "."
     if not os.path.isdir(d):
@@ -316,6 +329,7 @@ def _unit_worker(payload: dict) -> list[dict]:
             journal.put(result)
         out.append(result.to_dict())
     session.save_store()
+    close_store(session.store)
     return out
 
 
@@ -389,9 +403,10 @@ def _build_worker_state(ctx: dict, ident: int) -> dict:
 
 
 def _close_worker_state(state: dict | None) -> None:
-    """Flush a worker's shard store tail."""
+    """Flush a worker's shard store tail and release its file."""
     if state is not None:
         state["session"].save_store()
+        close_store(state["session"].store)
 
 
 def _run_state_unit(state: dict, unit_dict: dict) -> tuple[int, dict]:
@@ -566,16 +581,54 @@ def _device_worker(payload: dict, device) -> list[dict]:
         return _unit_worker(payload)
 
 
+def _on_card_threads(n: int, work: Callable[[int], Any],
+                     failed: threading.Event) -> tuple[list, BaseException | None]:
+    """Run ``work(k)`` for k < ``n`` on ``n`` dedicated threads, one per card,
+    and join them all.  A pool cannot stand in here: it hands a task to an
+    idle thread before it starts another, so one thread could run two
+    cards' work.  No thread starts its work before every card's thread is
+    up, so all ``n`` are alive at once and none can take over a card whose
+    thread has not started.  The first error sets ``failed`` (so the other
+    threads stop pulling work) and is returned, not raised, once every
+    thread has ended; results come back in card order."""
+    results: list = [None] * n
+    errors: list[BaseException] = []
+    ready = threading.Barrier(n)
+
+    def run(k: int) -> None:
+        try:
+            ready.wait()
+            results[k] = work(k)
+        except BaseException as e:   # handed to the caller, which re-raises
+            errors.append(e)
+            failed.set()
+
+    threads = [
+        threading.Thread(target=run, args=(k,), name=f"device-{k}")
+        for k in range(n)
+    ]
+    started = []
+    try:
+        for t in threads:
+            t.start()
+            started.append(t)
+    except BaseException:
+        ready.abort()                # release the threads already waiting
+        raise
+    finally:
+        for t in started:
+            t.join()
+    return results, (errors[0] if errors else None)
+
+
 def _run_device(plan: ExecutionPlan) -> list[UnitResult]:
     """Fan units across the cards of this process, one thread per card.
 
     Same payloads and shard-store plumbing as the process executor, but the
     workers are threads pinned to cards instead of spawned interpreters.
     Each thread's measurements launch on its card's current stream; the
-    launch counters (``repro_torch.kernels.LAUNCHES``) are plain integers
-    that threads on several cards could race on — exact on a one-card host.
+    launch counters (``repro_torch.kernels.LAUNCHES``) add under a lock.
     """
-    import concurrent.futures
     import warnings
 
     spec_dict = _check_shippable(plan.session)
@@ -600,14 +653,14 @@ def _run_device(plan: ExecutionPlan) -> list[UnitResult]:
         )
     if plan.scheduler == "static":
         payloads = _make_payloads(plan, spec_dict)
-        with concurrent.futures.ThreadPoolExecutor(
-            max_workers=len(payloads), thread_name_prefix="device-shard"
-        ) as pool:
-            futures = [
-                pool.submit(_device_worker, p, devices[k])
-                for k, p in enumerate(payloads)
-            ]
-            worker_results = _drain_futures(plan, payloads, futures)
+        worker_results, error = _on_card_threads(
+            len(payloads), lambda k: _device_worker(payloads[k], devices[k]),
+            threading.Event(),
+        )
+        if error is not None:
+            # completed cards' journaled units survive for resume=True
+            merge_shard_stores(plan.session, [p["store_path"] for p in payloads])
+            raise error
         return _collect(plan, payloads, worker_results)
     return _run_device_steal(plan, spec_dict, devices)
 
@@ -615,60 +668,37 @@ def _run_device(plan: ExecutionPlan) -> list[UnitResult]:
 def _run_device_steal(
     plan: ExecutionPlan, spec_dict: dict, devices: list
 ) -> list[UnitResult]:
-    """Stealing schedule over card-pinned worker threads.  Each thread
-    builds ONE persistent session at thread start, under its pin, and pulls
-    units from the pool queue as it frees up; the worker identity is the
-    card index, so shard stores use the same ``shard<k>`` names as the
-    static path."""
-    import concurrent.futures
-    import threading
-
+    """Stealing schedule over card-pinned threads.  Each card's thread
+    builds ONE persistent session under its pin, then pulls units from a
+    shared queue as it frees up; the worker identity is the card index, so
+    shard stores use the same ``shard<k>`` names as the static path."""
     ctx = _steal_context(plan, spec_dict)
     n = max(1, min(plan.max_workers, len(plan.units)))
-    states: list[dict | None] = []
-    states_lock = threading.Lock()
-    tls = threading.local()
+    unit_dicts = [u.to_dict() for u in plan.units]
+    results: list[dict | None] = [None] * len(unit_dicts)
+    states: list[dict | None] = [None] * n
+    queue = iter(range(len(unit_dicts)))
+    queue_lock = threading.Lock()
+    failed = threading.Event()
 
-    def _thread_init() -> None:
-        with states_lock:
-            k = len(states)
-            states.append(None)
+    def card(k: int) -> None:
         with _pin(devices[k]):
-            state = _build_worker_state(ctx, ident=k)
-        state["device"] = devices[k]
-        states[k] = state
-        tls.state = state
+            states[k] = state = _build_worker_state(ctx, ident=k)
+        while not failed.is_set():
+            with queue_lock:
+                i = next(queue, None)
+            if i is None:
+                return
+            with _pin(devices[k]):
+                _, results[i] = _run_state_unit(state, unit_dicts[i])
 
-    def _thread_task(unit_dict: dict) -> tuple[int, dict]:
-        state = tls.state
-        with _pin(state["device"]):
-            return _run_state_unit(state, unit_dict)
-
-    pool = concurrent.futures.ThreadPoolExecutor(
-        max_workers=n,
-        thread_name_prefix="device-steal",
-        initializer=_thread_init,
-    )
-    try:
-        futures = [
-            pool.submit(_thread_task, u.to_dict()) for u in plan.units
-        ]
-        try:
-            dicts = _drain_steal(futures)
-        except BaseException:
-            for f in futures:
-                f.cancel()
-            pool.shutdown(wait=True)
-            for s in states:
-                _close_worker_state(s)
-            recover_shard_stores(plan.session)
-            raise
-    finally:
-        pool.shutdown(wait=True)
+    _, error = _on_card_threads(n, card, failed)
     for s in states:
         _close_worker_state(s)
     recover_shard_stores(plan.session)
-    return [UnitResult.from_dict(d) for d in dicts]
+    if error is not None:
+        raise error
+    return [UnitResult.from_dict(d) for d in results]
 
 
 register_executor(Executor(name="device", run=_run_device, parallel=True))

@@ -7,6 +7,9 @@ served, so searchers can be budget-audited, and ``measure_final`` re-runs the
 winning config ``final_repeats`` times (paper: 10) and returns the median.
 
 * :class:`CallableMeasurement` — wraps any ``f(config) -> seconds``.
+* :class:`TimingMeasurement`  — wall-clock of a real callable, fenced.
+* :class:`CachedMeasurement`  — memoizes another measurement (the paper runs
+  a config once during search; re-measuring during search would leak budget).
 * :func:`fence` — waits for a kernel's output inside the timed region.
 """
 
@@ -150,3 +153,106 @@ class CallableMeasurement(BaseMeasurement):
         self.n_samples += len(configs)
         self.n_dispatches += 1
         return np.asarray(self._batch_fn(configs), dtype=np.float64)
+
+
+class TimingMeasurement(BaseMeasurement):
+    """Times ``runner(config)`` with a monotonic clock.
+
+    At least one warmup call runs per distinct config before timing (more
+    with ``warmup > 1``), so first-call cost (a build, a lazy load) is
+    always excluded — the analogue of the paper starting the timer only
+    after host->device transfer.  Warmup results AND the timed result are
+    fenced (:func:`fence`): a CUDA launch retires inside the timed region,
+    never before it or after it.  The clock is :mod:`repro_torch.core.clock`'s.
+    """
+
+    def __init__(self, runner: Callable[[Config], None], warmup: int = 1):
+        super().__init__()
+        self._runner = runner
+        self._warmup = max(1, warmup)
+        self._warmed: set = set()
+
+    def _key(self, config: Config):
+        return tuple(sorted(config.items()))
+
+    def _measure_one(self, config: Config) -> float:
+        k = self._key(config)
+        if k not in self._warmed:
+            for _ in range(self._warmup):
+                fence(self._runner(config))
+            self._warmed.add(k)
+        t0 = monotonic()
+        fence(self._runner(config))
+        return monotonic() - t0
+
+
+class CachedMeasurement(BaseMeasurement):
+    """Memoizes an inner measurement by config.
+
+    During search the paper evaluates each configuration once ('We only run
+    the sample once during the training and sampling process').  Searchers
+    that revisit a config (GA elites, SA plateaus) therefore see the *same*
+    noisy observation rather than a fresh draw, and the revisit does not
+    consume extra budget.
+    """
+
+    def __init__(self, inner: BaseMeasurement):
+        super().__init__()
+        self._inner = inner
+        self._cache: dict = {}
+
+    def _key(self, config: Config):
+        return tuple(sorted(config.items()))
+
+    def measure(self, config: Config) -> float:
+        self.n_dispatches += 1
+        k = self._key(config)
+        if k not in self._cache:
+            self._cache[k] = self._inner.measure(config)
+            self.n_samples += 1
+        return self._cache[k]
+
+    def measure_batch(self, configs: Sequence[Config]) -> np.ndarray:
+        """Batch-aware memoization: only uncached configs reach the inner
+        backend, in ONE dispatch (duplicates within the batch collapse)."""
+        self.n_dispatches += 1
+        keys = [self._key(c) for c in configs]
+        fresh_keys: list = []
+        fresh_cfgs: list = []
+        seen_fresh: set = set()
+        for k, c in zip(keys, configs, strict=True):
+            if k not in self._cache and k not in seen_fresh:
+                seen_fresh.add(k)
+                fresh_keys.append(k)
+                fresh_cfgs.append(c)
+        if fresh_cfgs:
+            vals = self._inner.measure_batch(fresh_cfgs)
+            self.n_samples += len(fresh_cfgs)
+            self._cache.update(zip(fresh_keys, (float(v) for v in vals), strict=True))
+        return np.array([self._cache[k] for k in keys], dtype=np.float64)
+
+    def _measure_one(self, config: Config) -> float:
+        return self._inner._measure_one(config)
+
+    def measure_final(self, config: Config, repeats: int = 10) -> float:
+        return self._inner.measure_final(config, repeats)
+
+    def skip_samples(self, n: int) -> None:
+        self._inner.skip_samples(n)
+
+    def provenance(self) -> dict:
+        return self._inner.provenance()
+
+    def reason_for(self, config: Config) -> str | None:
+        return self._inner.reason_for(config)
+
+    def repeats_for(self, config: Config) -> list | None:
+        return self._inner.repeats_for(config)
+
+    def stage_times(self) -> dict[str, float]:
+        return self._inner.stage_times()
+
+    def reset(self) -> None:
+        super().reset()
+        self._cache.clear()
+        self._inner.reset()

@@ -26,6 +26,7 @@ so consecutive blocks follow the reference's row-major grid order.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from math import ceil
 from typing import Callable
@@ -146,10 +147,13 @@ def launch_plan(g: KernelGeometry, x: int, y: int) -> LaunchPlan:
 class LaunchCounter:
     """How many times a wrapper launched its CUDA kernel.  The wrapper adds
     one where it launches, and nowhere else; callers read ``n`` and may set
-    it to 0."""
+    it to 0.  Adds hold a lock: the device executor's threads launch on
+    several cards at once, and ``n += 1`` is a read-modify-write."""
 
     def __init__(self) -> None:
         self.n = 0
+        self._lock = threading.Lock()
 
     def add(self) -> None:
-        self.n += 1
+        with self._lock:
+            self.n += 1

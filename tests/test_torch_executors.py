@@ -191,6 +191,85 @@ def test_device_threads_hold_their_pin(monkeypatch, scheduler):
     assert all(len(pins) == 1 for pins in by_thread.values())
 
 
+@pytest.mark.parametrize("scheduler", ["steal", "static"])
+def test_each_card_keeps_its_own_thread_when_work_ends_early(monkeypatch, scheduler):
+    """Force the race a thread pool loses: each hand-off to a pool waits
+    until its task is done, so the first card's work finishes before the
+    second card's is handed out, and a pool would give it to its idle
+    thread.  Every card still gets its own thread, and its session is
+    built under its own pin."""
+    import concurrent.futures as cf
+
+    spec = SPEC.replace(algorithms=("rs", "ga"), dataset_size=None)
+    devices = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    monkeypatch.setattr(executors, "cuda_devices", lambda: devices)
+    orig_submit = cf.ThreadPoolExecutor.submit
+
+    def submit_and_wait(self, fn, *args, **kwargs):
+        future = orig_submit(self, fn, *args, **kwargs)
+        cf.wait([future])
+        return future
+
+    monkeypatch.setattr(cf.ThreadPoolExecutor, "submit", submit_and_wait)
+    pinned = threading.local()
+
+    class Pin:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            pinned.device = self.device
+
+        def __exit__(self, *exc):
+            pinned.device = None
+
+    monkeypatch.setattr(executors, "_pin", Pin)
+    threads_by_card, built = {}, []
+    orig_init, orig_run = TuningSession.__init__, TuningSession.run_unit
+
+    def init(self, *args, **kwargs):
+        orig_init(self, *args, **kwargs)
+        built.append(str(getattr(pinned, "device", None)))
+
+    def run_unit(self, unit):
+        card = str(getattr(pinned, "device", None))
+        threads_by_card.setdefault(card, set()).add(threading.current_thread())
+        return orig_run(self, unit)
+
+    monkeypatch.setattr(TuningSession, "__init__", init)
+    monkeypatch.setattr(TuningSession, "run_unit", run_unit)
+    TuningSession(spec).run_matrix(executor="device", max_workers=2, scheduler=scheduler)
+    assert sorted(built[1:]) == ["cpu:0", "cpu:1"]
+    owners = [t for ts in threads_by_card.values() for t in ts]
+    assert set(threads_by_card) <= {"cpu:0", "cpu:1"}
+    assert len(owners) == len(set(owners)) == len(threads_by_card)   # one card each
+    if scheduler == "static":
+        assert set(threads_by_card) == {"cpu:0", "cpu:1"}
+
+
+def test_launch_counts_add_exactly_across_threads():
+    """The launch counters add under a lock: threads on several cards never
+    lose a count (a short switch interval makes a lost update likely)."""
+    import sys
+
+    from repro_torch.kernels.common import LaunchCounter
+
+    counter, n_threads, per_thread = LaunchCounter(), 16, 5000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [counter.add() for _ in range(per_thread)])
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert counter.n == n_threads * per_thread
+
+
 def test_device_executor_warns_and_caps(tmp_path, two_cpu_devices):
     spec = SPEC.replace(algorithms=("rs", "ga"), dataset_size=None,
                         store="json", store_path=str(tmp_path / "d.json"))
@@ -225,6 +304,37 @@ def test_executor_registry_and_argument_errors():
             TuningSession(spec).run_matrix(compile_cache="cache")
     with pytest.raises(ValueError, match="design"):
         TuningSession(SPEC.replace(design=None)).run_matrix()
+
+
+def test_process_executor_refuses_more_workers_than_cards(monkeypatch):
+    """On the card each spawned worker opens its own CUDA context, so
+    workers sharing a card would time each other's kernels."""
+    from repro_torch.core import api
+
+    spec = SPEC.replace(backend="cuda", backend_kwargs={"x": 64, "y": 128},
+                        algorithms=("rs", "ga"), dataset_size=None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    ran = spy_run_unit(monkeypatch)
+    for kwargs in (dict(executor="process", max_workers=2), dict(shards=3)):
+        with pytest.raises(ValueError, match="(?s)'serial'.*'device'"):
+            TuningSession(spec).run_matrix(**kwargs)
+    assert ran == []
+
+    class Planned(Exception):
+        pass
+
+    def planned(name, plan):
+        raise Planned(name, plan.max_workers)
+
+    monkeypatch.setattr(api, "run_units", planned)
+    # as many workers as cards, and the plain versions on the CPU, pass
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(Planned, match="process"):
+        TuningSession(spec).run_matrix(executor="process", max_workers=2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    on_cpu = spec.replace(backend_kwargs={"x": 64, "y": 128, "device": "cpu"})
+    with pytest.raises(Planned, match="process"):
+        TuningSession(on_cpu).run_matrix(executor="process", max_workers=2)
 
 
 def test_parallel_request_degrades_to_serial_with_warning():

@@ -194,8 +194,9 @@ def test_specs_round_trip_as_the_reference():
     for name in ("paper", "smoke"):
         assert getattr(ExperimentDesign, name)().to_dict() == getattr(RefDesign, name)().to_dict()
     assert ExperimentDesign.scaled(500).rows() == RefDesign.scaled(500).rows()
+    assert port_spec(store="sqlite").to_dict() == ref_spec(store="sqlite").to_dict()
     with pytest.raises(KeyError, match="unknown store"):
-        port_spec(store="sqlite")
+        port_spec(store="parquet")
 
 
 def test_a_config_repeated_in_a_batch_is_served_as_stored(tmp_path):

@@ -98,6 +98,41 @@ def test_run_record_names_the_cpu_and_claims_no_gpu(tmp_path):
     assert rec.spec["backend_kwargs"]["device"] == "cpu"
 
 
+def test_run_records_name_the_code_that_made_them(tmp_path):
+    """``repro_version`` always; in a checkout the commit and whether the
+    tree was dirty, as the reference records them; outside one (a copy of
+    the package, as ``git archive`` unpacks it) the version alone."""
+    from repro.core.api import _git_state as ref_git_state
+
+    spec = TuningSpec(kernel="harris", searcher="rs", backend="costmodel",
+                      backend_kwargs={"chip": "v5e"}, budget=4, final_repeats=1)
+    session = TuningSession(spec)
+    session.run()
+    prov = session.last_record.provenance
+    assert prov["repro_version"] == repro_torch.__version__
+    head = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                          capture_output=True, text=True)
+    if head.returncode == 0:
+        assert prov["git_sha"] == head.stdout.strip() == ref_git_state()["git_sha"]
+        assert isinstance(prov["git_dirty"], bool)
+    else:
+        assert not {"git_sha", "git_dirty"} & set(prov)
+
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "src", "repro_torch"), tmp_path / "repro_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = ("import json, repro_torch.core.api as a\n"
+            "print(json.dumps(a._provenance()))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(tmp_path)},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    copied = json.loads(out.stdout)
+    assert copied["repro_version"] == repro_torch.__version__
+    assert not {"git_sha", "git_dirty"} & set(copied)
+
+
 def test_warm_store_rerun_serves_every_sample(tmp_path):
     spec = TuningSpec(kernel="mandelbrot", searcher="ga", backend="cuda",
                       backend_kwargs={**SMALL, "device": "cpu"}, budget=12,
@@ -142,13 +177,17 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
         assert json.load(f) == raw           # loading never rewrites the file
 
 
-#: modules the matrix slice added; the walk below must reach each of them
+#: modules the matrix slice and the stores-and-analysis slice added; the
+#: walk below must reach each of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
     "repro_torch.core.stores", "repro_torch.core.workunits",
     "repro_torch.costmodel", "repro_torch.costmodel.kernel_cost",
     "repro_torch.costmodel.noise", "repro_torch.costmodel.tpu",
+    "repro_torch.core.stats", "repro_torch.analysis", "repro_torch.analysis.records",
+    "repro_torch.analysis.stats", "repro_torch.analysis.claims",
+    "repro_torch.analysis.figures", "repro_torch.analysis.report",
 )
 
 
