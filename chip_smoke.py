@@ -42,6 +42,10 @@ Phases (any failure exits non-zero and prints no result line):
    resumed from the unit journal (no unit runs, no launch); add and
    mandelbrot with ``rs`` and ``ga`` on the serial executor; the three
    write their results into one directory as combos ``<kernel>/h100``;
+   harris's cold run is traced (``telemetry_dir``): the trace's per-stage
+   totals beside the units' summed ``stage_s`` (they must agree to 1e-6 s),
+   its completed units and experiments against the plan, and ``python -m
+   repro_torch.telemetry`` on the directory in a process of its own;
 4d. stores and analysis: harris's cold JSON store copied into a sqlite
    store (values, unit journal, winners), the matrix replayed warm from it
    with ``store="sqlite"`` on the ``device`` executor (no launch, the cold
@@ -50,8 +54,21 @@ Phases (any failure exits non-zero and prints no result line):
    the results directory: each claim's verdict line, the speedup-over-RS
    rows, the provenance (backend ``cuda``, the card, the code's version),
    a figure per plot where matplotlib is installed and the "tables only"
-   line where it is not, and ``python -m repro_torch.analysis`` on the same
+   line where it is not, the "Pipeline stage durations" table read from
+   harris's trace, and ``python -m repro_torch.analysis`` on the same
    directory in a process of its own;
+4e. serving, in a fresh serve dir, through ``python -m repro_torch.serving``:
+   harris's cold store indexed; a query for harris at 8192x8192 on the
+   card's name must hit with the config of the matrix's best final entry
+   (with its ``serve_ms``), one at 4096x4096 must answer ``nearest``; a
+   query for mandelbrot at 8192x8192 misses and queues a tuning job
+   (``rs`` and ``ga`` at the smoke design); a fleet worker in a process of
+   its own tunes it on the card (its launches are the phase's), ``collect``
+   lists it and the query hits; the winner's config through the CUDA kernel
+   equals the plain version exactly and is timed with CUDA events beside the
+   default config; ``serve`` in a process of its own answers ``GET
+   /best_config`` for harris with the query's JSON; the trace's serving
+   counters match the queries made;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -466,10 +483,11 @@ def same_cells(a, b) -> bool:
         for k in a.cells for n in ("final_values", "search_best_values", "n_samples_used"))
 
 
-def matrix_cold(kernel: str, tmp: str):
+def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
     """One cold serial ``tune_matrix`` at 8192x8192, counted as the main
-    path is; its cell lines and checks.  Returns the spec, the results, the
-    kernel's launches, the run's wall seconds and its materialisations."""
+    path is, traced into ``telemetry_dir`` when given; its cell lines and
+    checks.  Returns the spec, the results, the kernel's launches, the run's
+    wall seconds and its materialisations."""
     import numpy as np
     import torch
 
@@ -486,7 +504,7 @@ def matrix_cold(kernel: str, tmp: str):
         c.n = 0
     t0 = time.perf_counter()
     with timed_materialize() as inputs:
-        results = tune_matrix(spec, out_dir=out_dir)
+        results = tune_matrix(spec, out_dir=out_dir, telemetry_dir=telemetry_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: c.n for k, c in LAUNCHES.items()}
@@ -515,6 +533,57 @@ def matrix_cold(kernel: str, tmp: str):
                                             materialise_s=inputs["s"])
 
 
+def check_trace(spec, run_dir: str) -> dict:
+    """Harris's cold trace against the run: each stage's trace total beside
+    the units' summed ``stage_s`` (read back from the unit journal), which
+    must agree to 1e-6 s; the completed units and experiments against the
+    plan; the trace's command line in a process of its own."""
+    from repro_torch import TuningSession, build_units
+    from repro_torch.telemetry import read_run, stage_percentiles, summarize
+
+    events = read_run(run_dir)
+    plans = [e for e in events if e.get("ev") == "plan"]
+    require(len(plans) == 1, f"trace: {len(plans)} plan events")
+    session = TuningSession(spec)
+    cells = session.cells()
+    units = build_units(cells, min_units=1, cost=session._unit_cost())
+    journal = session.unit_journal()
+    stage_s: dict = {}
+    for u in units:
+        result = journal.get(u)
+        require(result is not None, f"trace: unit {u.key} not journaled")
+        for k, v in result.stage_s.items():
+            stage_s[k] = stage_s.get(k, 0.0) + v
+    if hasattr(session.store, "close"):
+        session.store.close()
+    totals = {k: v["total_s"] for k, v in stage_percentiles(events).items()}
+    diff = {k: abs(totals.get(k, 0.0) - stage_s.get(k, 0.0)) for k in set(totals) | set(stage_s)}
+    summary = summarize(run_dir)
+    counters = summary["counters"]
+    n_exp = sum(e for _, _, e in cells)
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.telemetry", run_dir],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    print(f"trace harris cold: events={summary['n_events']} stage_total_s={totals} "
+          f"units_stage_s={stage_s} max_abs_diff_s={max(diff.values())!r} "
+          f"units_completed={counters.get('units_completed')}/{plans[0]['units_total']} "
+          f"experiments_completed={counters.get('experiments_completed')}/{n_exp} "
+          f"compiles={counters.get('compiles')} store_misses={counters.get('store_misses')} "
+          f"invalid={summary['invalid']} cli_exit={cli.returncode}")
+    require(set(totals) == {"screen", "compile", "time", "record"}, f"trace stages {totals}")
+    require(max(diff.values()) <= 1e-6, f"trace stage totals differ from stage_s by {diff}")
+    require(plans[0]["units_total"] == len(units) == counters.get("units_completed"),
+            f"trace: units planned {plans[0]['units_total']}, built {len(units)}, "
+            f"completed {counters.get('units_completed')}")
+    require(plans[0]["experiments_total"] == n_exp == counters.get("experiments_completed"),
+            f"trace: experiments planned {plans[0]['experiments_total']}, {n_exp} in the "
+            f"design, completed {counters.get('experiments_completed')}")
+    require(cli.returncode == 0 and "per-stage durations" in cli.stdout,
+            f"python -m repro_torch.telemetry: exit {cli.returncode}: {cli.stderr[-2000:]}")
+    return dict(stage_total_s=totals, max_abs_diff_s=max(diff.values()),
+                n_events=summary["n_events"], counters=counters)
+
+
 def results_dir(tmp: str) -> str:
     """The one results directory the three cold matrices write into."""
     return os.path.join(tmp, "results")
@@ -533,8 +602,9 @@ def run_matrix_phase(tmp: str) -> dict:
     from repro_torch.kernels import LAUNCHES
 
     counted, stats = {k: 0 for k in KERNELS}, {}
-    spec, cold, n, stats["harris"] = matrix_cold("harris", tmp)
+    spec, cold, n, stats["harris"] = matrix_cold("harris", tmp, telemetry_dir=results_dir(tmp))
     counted["harris"] += n
+    stats["harris"]["trace"] = check_trace(spec, results_dir(tmp))
 
     # warm replay: one worker per card; asking for two on a one-card
     # host caps to one thread (with a warning) rather than degrading to
@@ -687,6 +757,7 @@ def run_stores_phase(tmp: str, spec, cold) -> None:
                             "speedup_vs_sample_size.png"], f"report: figures {figures}")
     else:
         require("(matplotlib unavailable — tables only)" in text, "report: no tables-only line")
+    require("### Pipeline stage durations" in text, "report: no pipeline stage durations table")
     cli = subprocess.run(
         [sys.executable, "-m", "repro_torch.analysis", out, "--out",
          os.path.join(tmp, "REPORT_cli.md")],
@@ -697,6 +768,150 @@ def run_stores_phase(tmp: str, spec, cold) -> None:
           f"matplotlib={HAVE_MATPLOTLIB} figures={figures} bytes={len(text)} "
           f"cli_exit={cli.returncode} {cli.stdout.strip()!r}")
     require(cli.returncode == 0, f"report CLI: exit {cli.returncode}: {cli.stderr[-2000:]}")
+
+
+def serving_cli(*argv: str) -> str:
+    """``python -m repro_torch.serving <argv>`` in this process; its output.
+    A non-zero exit fails the run."""
+    import io
+
+    from repro_torch.serving.__main__ import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    require(rc == 0, f"serving {argv[0]}: exit {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def best_final_config(store_path: str) -> dict:
+    """The config of the best re-measured (``|final``) entry of a JSON
+    store, found by a scan of its values of its own."""
+    from repro_torch.serving.winners import parse_config_from_store_key
+
+    with open(store_path) as f:
+        raw = json.load(f)
+    values = raw["values"] if isinstance(raw, dict) and "__format__" in raw else raw
+    value, key = min((v, k) for k, v in values.items() if "|final" in k)
+    return parse_config_from_store_key(key)
+
+
+def run_serving_phase(tmp: str, harris_spec) -> dict:
+    """Phase 4e: tuning-as-a-service on the card, in a fresh serve dir.
+    The worker is the only part that launches kernels; it runs in a process
+    of its own, which starts with its counts at 0, and reports them."""
+    import signal
+    import socket
+    import urllib.parse
+    import urllib.request
+
+    import torch
+
+    import repro_torch.kernels as K
+    from repro_torch.telemetry.assert_counters import main as assert_counters
+
+    card = torch.cuda.get_device_name(0)
+    d = os.path.join(tmp, "serve")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    geometry = ["--x", "8192", "--y", "8192", "--device", card]
+
+    def query(kernel: str, *extra: str) -> dict:
+        return json.loads(serving_cli("query", "--dir", d, "--telemetry", "--kernel", kernel,
+                                      *extra).strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    print("serving index: " + serving_cli("index", "--dir", d, harris_spec.store_path
+                                          ).strip().replace("\n", "; "))
+    hit = query("harris", *geometry, "--expect", "hit")
+    want = best_final_config(harris_spec.store_path)
+    print(f"serving query harris 8192x8192 {card!r}: status={hit['status']} "
+          f"config={json.dumps(hit['config'], sort_keys=True)} value={hit['value']!r} "
+          f"serve_ms={hit['serve_ms']!r} matrix_best_final={json.dumps(want, sort_keys=True)}")
+    require(hit["config"] == want, f"serving: hit {hit['config']} is not the best final {want}")
+    near = query("harris", "--x", "4096", "--y", "4096", "--device", card, "--expect", "nearest")
+    print(f"serving query harris 4096x4096: status={near['status']} "
+          f"matched_key={near['matched_key']!r} serve_ms={near['serve_ms']!r}")
+    miss = query("mandelbrot", *geometry, "--enqueue", "--expect", "miss")
+    require(bool(miss["job_id"]), f"serving: the miss queued no job: {miss}")
+    print(f"serving query mandelbrot 8192x8192: status={miss['status']} job_id={miss['job_id']} "
+          f"serve_ms={miss['serve_ms']!r}")
+    jobs = [json.loads(line) for line in serving_cli("jobs", "--dir", d).splitlines()]
+    require(jobs == [{"id": miss["job_id"], "kernel": "mandelbrot", "state": "pending"}],
+            f"serving: jobs {jobs}")
+
+    t1 = time.perf_counter()
+    worker = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serving", "worker", "--dir", d, "--max-jobs", "1",
+         "--telemetry", "--ident", "card0"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    worker_s = time.perf_counter() - t1
+    line = worker.stdout.strip().splitlines()[-1] if worker.stdout.strip() else ""
+    print(f"serving worker: exit={worker.returncode} wall_s={worker_s:.3f} {line}")
+    require(worker.returncode == 0 and "1 job(s) completed" in line,
+            f"serving worker: exit {worker.returncode}: {worker.stderr[-3000:]}")
+    launches = json.loads(line.split("launches ", 1)[1])
+    require(launches["mandelbrot"] > 0, f"serving worker launched no mandelbrot: {launches}")
+    require(launches["add"] == launches["harris"] == 0, f"serving worker launched {launches}")
+    collected = serving_cli("collect", "--dir", d, "--telemetry").strip()
+    print(f"serving collect: {collected}")
+    require(miss["job_id"] in collected, f"serving collect: {collected}")
+    filled = query("mandelbrot", *geometry, "--expect", "hit")
+    cfg = filled["config"]
+    print(f"serving query mandelbrot 8192x8192 after collect: status={filled['status']} "
+          f"config={json.dumps(cfg, sort_keys=True)} value={filled['value']!r} "
+          f"serve_ms={filled['serve_ms']!r}")
+
+    # the served winner through the CUDA kernel (uncounted: a comparison)
+    x, y = 8192, 8192
+    ref = K.mandelbrot_ref(x, y, device="cuda")
+    out = K.mandelbrot(x, y, cfg, device="cuda")
+    require(torch.equal(out, ref), "serving: the winner's mandelbrot differs from the plain one")
+    ms = [time_ms(lambda: K.mandelbrot(x, y, DEFAULT_CONFIG, device="cuda"), 20),
+          time_ms(lambda: K.mandelbrot(x, y, cfg, device="cuda"), 20),
+          time_ms(lambda: K.mandelbrot(x, y, cfg, device="cuda"), 20),
+          time_ms(lambda: K.mandelbrot(x, y, DEFAULT_CONFIG, device="cuda"), 20)]
+    print(f"serving mandelbrot winner {x}x{y}: exact on every pixel; ms default/winner/"
+          f"winner/default={ms}")
+
+    # the HTTP endpoint in a process of its own, stopped as a user stops it
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    server = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serving", "serve", "--dir", d, "--port", str(port),
+         "--telemetry"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        banner = server.stdout.readline().strip()
+        qs = urllib.parse.urlencode(dict(kernel="harris", x=x, y=y, device=card))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/best_config?{qs}",
+                                    timeout=60) as resp:
+            body = json.loads(resp.read())
+    finally:
+        server.send_signal(signal.SIGINT)
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+    same = {k: v for k, v in body.items() if k != "age_s"} == {
+        k: v for k, v in hit.items() if k not in ("age_s", "serve_ms")}
+    print(f"serving http: {banner} GET /best_config harris: status={body['status']} "
+          f"same_as_query={same} server_exit={server.returncode}")
+    require(same, f"serving http: {body} differs from the query's {hit}")
+
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = assert_counters([d, "serve.hits==3", "serve.nearest==1", "serve.misses==1",
+                              "serve.enqueued==1", "fleet.jobs_completed==1",
+                              "fleet.jobs_collected==1"])
+    print(f"serving counters: {out.getvalue().strip()}")
+    require(rc == 0, "serving: the trace's counters differ from the queries made")
+    wall = time.perf_counter() - t0
+    return {"launches": launches["mandelbrot"], "worker_s": worker_s, "wall_s": wall,
+            "winner": cfg, "hit_serve_ms": hit["serve_ms"], "ms_default_winner": ms}
 
 
 def time_add_paths(a, b, winner: dict) -> dict:
@@ -870,6 +1085,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run_stores_phase(tmp, *matrix["harris"])      # 4d.
         phase_s["stores"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serving = run_serving_phase(tmp, matrix["harris"][0])   # 4e.
+        phase_s["serving"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 
@@ -878,13 +1096,15 @@ def main() -> int:
     for name in ("add", "harris", "mandelbrot"):
         source, replaces = KERNEL_INFO[name]
         t = times[name]
+        served = serving["launches"] if name == "mandelbrot" else 0
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (main_path["launches"][name] + searchers["launches"][name]
-                         + matrix["launches"][name]),
+                         + matrix["launches"][name] + served),
             "launches_by_phase": {"main": main_path["launches"][name],
                                   "searchers": searchers["launches"][name],
-                                  "matrix": matrix["launches"][name]},
+                                  "matrix": matrix["launches"][name],
+                                  "serving": served},
             "max_abs_err": max_err[name],
             "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -895,6 +1115,7 @@ def main() -> int:
             "tuned_config": main_path["winners"][name], "tuner": main_path["tuner"][name],
             "searchers": searchers["searchers"][name],
             "matrix": matrix["stats"][name],
+            **({"serving": serving} if name == "mandelbrot" else {}),
             "status": "ok",
         })
     print(f"gpu: {gpu_line()}")

@@ -13,9 +13,10 @@ everything the paper's analysis needs from the on-disk ``RunRecord`` +
 * the claim verdicts (pass / fail / insufficient-data).
 
 From "Quality vs sample size" on, the report is the reference's
-(``repro.analysis.report``) text for the same records.  The port has no
-telemetry trace yet, so the Telemetry section holds the counter totals a
-record carries and no stage-duration table.  The markdown table renderers
+(``repro.analysis.report``) text for the same records, the Telemetry
+section included: the counter totals a record carries and, when the
+directory holds a run's trace (``tune_matrix(telemetry_dir=...)``), the
+per-stage duration table read from it.  The markdown table renderers
 (:func:`render_grid` & friends) are public.
 """
 
@@ -107,10 +108,10 @@ def _render_ranks(results: dict) -> str:
     return "\n".join(lines)
 
 
-def _telemetry_section(results: dict) -> str:
-    """Counter totals from each combo's RunRecord; empty when no combo
-    recorded any.  (The reference adds per-stage duration percentiles from
-    a run's merged trace; the port writes no trace yet.)"""
+def _telemetry_section(results: dict, results_dir: str) -> str:
+    """Counter totals from each combo's RunRecord plus per-stage duration
+    percentiles from the run's merged trace (when one exists).  Empty when
+    every combo ran with telemetry disabled and no trace file is present."""
     lines: list[str] = []
     combo_counters = {
         key: meta["telemetry"].get("counters", {})
@@ -126,6 +127,26 @@ def _telemetry_section(results: dict) -> str:
         for (bench, chip), c in combo_counters.items():
             cells = [str(c.get(n, 0)) for n in names]
             lines.append(f"| {bench} x {chip} | " + " | ".join(cells) + " |")
+    from ..telemetry import TRACE_FILE, read_run, stage_percentiles
+
+    if os.path.exists(os.path.join(results_dir, TRACE_FILE)):
+        stages = stage_percentiles(read_run(results_dir))
+        if stages:
+            if lines:
+                lines.append("")
+            lines += [
+                "### Pipeline stage durations",
+                "",
+                "| stage | n | total (s) | p50 (ms) | p90 (ms) | p99 (ms) "
+                "| max (ms) |",
+                "|---|---|---|---|---|---|---|",
+            ]
+            for name, st in stages.items():
+                lines.append(
+                    f"| {name} | {st['count']} | {st['total_s']:.3f} | "
+                    f"{st['p50'] * 1e3:.3f} | {st['p90'] * 1e3:.3f} | "
+                    f"{st['p99'] * 1e3:.3f} | {st['max'] * 1e3:.3f} |"
+                )
     return "\n".join(lines)
 
 
@@ -303,7 +324,7 @@ def generate_report(
                     "search cost (wall = compile + measure)",
                 )
             ]
-        tel = _telemetry_section(results)
+        tel = _telemetry_section(results, results_dir)
         if tel:
             parts += ["", "## Telemetry", "", tel]
     parts += ["", "## Paper-claim verdicts", "", _claims_section(results), ""]

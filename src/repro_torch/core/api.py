@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import __version__
+from ..telemetry.null import NULL_TELEMETRY
 from .backends import BACKENDS, make_measurement
 from .clock import monotonic
 from .dataset import SampleDataset
@@ -433,6 +434,8 @@ class TuningSession:
     ``store``) exist for in-process callers that hold live objects; a
     session with overrides only runs under the ``serial`` executor because
     parallel workers rebuild everything from the serialized spec.
+    ``telemetry`` is an observability sink (:mod:`repro_torch.telemetry`),
+    never part of the run's identity.
     """
 
     def __init__(
@@ -445,11 +448,16 @@ class TuningSession:
         store=None,
         store_path: str | None = None,
         verbose: bool = False,
+        telemetry=None,
     ):
         if not isinstance(spec, TuningSpec):
             raise TypeError(f"spec must be a TuningSpec, got {type(spec).__name__}")
         self.spec = spec
         self.verbose = verbose
+        # a session/runtime knob, not a spec field, so it can never leak into
+        # cache keys, journal namespaces or spec fingerprints
+        self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
+        self._last_telemetry: dict = {}
         self._backend = BACKENDS[spec.backend]
         self._has_overrides = any(
             x is not None for x in (space, measurement_factory, dataset, store)
@@ -484,6 +492,9 @@ class TuningSession:
         self.measurement: BaseMeasurement | None = None  # last single-run backend
         self.last_record: RunRecord | None = None
         self.last_unit_plan: list[ExperimentUnit] = []
+        #: per unit key of the last matrix run's fresh units, the card a
+        #: parallel executor pinned and the worker that ran it
+        self.last_unit_devices: dict[str, dict] = {}
         self._last_cell_walls: dict[tuple[str, int], dict[str, float]] = {}
 
     # -- wiring ---------------------------------------------------------------
@@ -493,6 +504,7 @@ class TuningSession:
             m = DiskCachedMeasurement(
                 m, self.store, prefix=f"{self.cache_key}/seed={exp_seed}"
             )
+        m.set_telemetry(self.telemetry)
         return m
 
     def _get_dataset(self) -> SampleDataset | None:
@@ -525,11 +537,13 @@ class TuningSession:
             spec.searcher, self.space, seed=spec.seed, **spec.searcher_kwargs
         )
         measurement = self.measurement = self._make_measurement(spec.seed)
-        result = drive(searcher, measurement, spec.budget, dispatch=spec.dispatch)
+        result = drive(searcher, measurement, spec.budget,
+                       dispatch=spec.dispatch, telemetry=self.telemetry)
         result.final_value = measurement.measure_final(
             result.best_config, spec.final_repeats
         )
         self.save_store()
+        self._record_winner()
         res = {
             "best_config": result.best_config,
             "best_value": result.best_value,
@@ -603,6 +617,32 @@ class TuningSession:
         backends (``Backend.pipeline``); no port backend has them yet, so
         they raise ``ValueError``.
         """
+        with self.telemetry.span("matrix", cache_key=self.cache_key):
+            return self._run_matrix_impl(
+                shards,
+                executor=executor,
+                max_workers=max_workers,
+                resume=resume,
+                unit_experiments=unit_experiments,
+                futures_pool=futures_pool,
+                pipeline_workers=pipeline_workers,
+                scheduler=scheduler,
+                compile_cache=compile_cache,
+            )
+
+    def _run_matrix_impl(
+        self,
+        shards: int,
+        *,
+        executor: str | None,
+        max_workers: int | None,
+        resume: bool,
+        unit_experiments: int | None,
+        futures_pool,
+        pipeline_workers: int | None,
+        scheduler: str,
+        compile_cache: str | None,
+    ) -> MatrixResults:
         t0 = monotonic()
         if scheduler not in ("steal", "static"):
             raise ValueError(
@@ -694,7 +734,30 @@ class TuningSession:
                     f"[session] resume: {len(done)}/{len(units)} units served "
                     "from the journal"
                 )
+        tel = self.telemetry
+        if tel.enabled:
+            # the plan event anchors live progress: consumers count unit /
+            # experiment "end" events AFTER the last plan in the stream
+            tel.event(
+                "plan",
+                executor=name,
+                workers=workers,
+                scheduler=scheduler,
+                units=[u.key for u in pending],
+                units_total=len(units),
+                experiments_total=sum(u.n_unit_exp for u in units),
+                units_done_resume=len(done),
+                experiments_done_resume=sum(r.unit.n_unit_exp for r in done),
+            )
+            if done:
+                tel.inc("units_skipped_resume", len(done))
+        # snapshot BEFORE fresh units run: under the serial executor their
+        # counter deltas land in this same sink, so totals = pre-run snapshot
+        # + per-unit deltas is correct for every executor (workers ship their
+        # deltas back inside UnitResult.counters)
+        c_pre = tel.counters_snapshot()
         fresh: list[UnitResult] = []
+        self.last_unit_devices = {}
         if pending:
             run_name = name
             if EXECUTORS[name].parallel and (workers <= 1 or len(pending) <= 1):
@@ -719,8 +782,45 @@ class TuningSession:
         for cell in cell_results:
             results.add(cell)
         self.save_store()
+        self._record_winner()
+        if tel.enabled:
+            n_exp = {(algo, s): e for algo, s, e in cells}
+            for (algo, s), w in sorted(self._last_cell_walls.items()):
+                tel.event(
+                    "cell",
+                    algo=algo,
+                    sample_size=s,
+                    n_experiments=n_exp.get((algo, s)),
+                    wall_s=round(w["wall_s"], 6),
+                    compile_s=round(w.get("compile_s", 0.0), 6),
+                    measure_s=round(w.get("measure_s", 0.0), 6),
+                )
+            totals: dict[str, float] = dict(c_pre)
+            for r in done + fresh:
+                for k, v in r.counters.items():
+                    totals[k] = totals.get(k, 0) + v
+            totals = {
+                k: int(v) if float(v).is_integer() else float(v)
+                for k, v in sorted(totals.items())
+            }
+            tel.event("totals", counters=totals)
+            self._last_telemetry = {"counters": totals}
         self.last_record = self.make_record(results, wall_s=monotonic() - t0)
         return results
+
+    def _record_winner(self) -> None:
+        """Refresh the serving winners index after results land — the update
+        rides the store the results were just saved to, so the index is
+        maintained transactionally with its measurements.  Best-effort: the
+        serving index must never fail a tuning run."""
+        if self.store is None:
+            return
+        try:
+            from ..serving.winners import record_session_winner
+
+            record_session_winner(self)
+        except Exception as e:
+            warnings.warn(f"serving winner index update failed: {e}", stacklevel=2)
 
     def _times_on_card(self) -> bool:
         """Whether this spec's measurements time kernels on a CUDA card."""
@@ -809,47 +909,78 @@ class TuningSession:
         bit-identical to the monolithic per-cell loop.  Each experiment
         builds a fresh measurement (on the card: inputs drawn and copied
         anew, as the reference materialises them per measurement).
+
+        ``stage_s`` sums the stage clocks of every measurement the unit
+        made, the batched RF path's prediction measurements included (the
+        reference leaves those out), so it equals the unit's ``stage``
+        trace events.  With telemetry on, the unit runs inside a ``unit``
+        span, each experiment inside an ``experiment`` span, and the
+        counter delta rides back in ``UnitResult.counters``.
         """
         spec = self.spec
+        tel = self.telemetry
         t0 = monotonic()
-        dataset = self._get_dataset()
-        n = unit.n_unit_exp
-        finals = np.empty(n)
-        search_best = np.empty(n)
-        n_used = np.empty(n, dtype=np.int64)
-        rf_batch = (
-            self._rf_unit_batched(unit)
-            if (dataset is not None and unit.algo == "rf")
-            else None
-        )
+        c0 = tel.counters_snapshot()
         stage_acc: dict[str, float] = {}
-        for i, e in enumerate(range(unit.exp_lo, unit.exp_hi)):
-            exp_seed = stable_seed(spec.seed, unit.algo, unit.sample_size, e)
-            measurement = self.measurement = self._make_measurement(exp_seed)
-            if rf_batch is not None:
-                tr = rf_batch[i]
-            elif dataset is not None and unit.algo == "rs":
-                tr = self._rs_from_dataset(e, unit.sample_size)
-            else:
-                # searcher_kwargs belong to the spec's named searcher; other
-                # algorithms on the matrix axis use their own defaults
-                kwargs = spec.searcher_kwargs if unit.algo == spec.searcher else {}
-                searcher = make_searcher(
-                    unit.algo, self.space, seed=exp_seed, **kwargs
-                )
-                tr = searcher.run(
-                    measurement, unit.sample_size, dispatch=spec.dispatch
-                )
-            finals[i] = measurement.measure_final(
-                tr.best_config, spec.design.final_repeats
-            )
-            search_best[i] = tr.best_value
-            n_used[i] = tr.n_samples
+
+        def add_stages(measurement: BaseMeasurement) -> None:
             # staged backends (cuda) report per-stage clocks; unstaged ones
             # report {} and the unit carries no breakdown
             for k, v in measurement.stage_times().items():
                 stage_acc[k] = stage_acc.get(k, 0.0) + float(v)
+
+        with tel.span(
+            "unit", unit=unit.key, algo=unit.algo, sample_size=unit.sample_size
+        ):
+            dataset = self._get_dataset()
+            n = unit.n_unit_exp
+            finals = np.empty(n)
+            search_best = np.empty(n)
+            n_used = np.empty(n, dtype=np.int64)
+            rf_batch = (
+                self._rf_unit_batched(unit, add_stages)
+                if (dataset is not None and unit.algo == "rf")
+                else None
+            )
+            for i, e in enumerate(range(unit.exp_lo, unit.exp_hi)):
+                with tel.span("experiment", experiment=e, unit=unit.key):
+                    exp_seed = stable_seed(spec.seed, unit.algo, unit.sample_size, e)
+                    measurement = self.measurement = self._make_measurement(exp_seed)
+                    if rf_batch is not None:
+                        tr = rf_batch[i]
+                    elif dataset is not None and unit.algo == "rs":
+                        tr = self._rs_from_dataset(e, unit.sample_size)
+                    else:
+                        # searcher_kwargs belong to the spec's named searcher;
+                        # other algorithms on the matrix axis use their own
+                        # defaults
+                        kwargs = (
+                            spec.searcher_kwargs if unit.algo == spec.searcher else {}
+                        )
+                        searcher = make_searcher(
+                            unit.algo, self.space, seed=exp_seed, **kwargs
+                        )
+                        tr = searcher.run(
+                            measurement, unit.sample_size, dispatch=spec.dispatch,
+                            telemetry=tel,
+                        )
+                    finals[i] = measurement.measure_final(
+                        tr.best_config, spec.design.final_repeats
+                    )
+                    search_best[i] = tr.best_value
+                    n_used[i] = tr.n_samples
+                    add_stages(measurement)
+                if tel.enabled:
+                    tel.inc("experiments_completed")
+            if tel.enabled:
+                tel.inc("units_completed")
         wall = monotonic() - t0
+        counters: dict[str, float] = {}
+        if tel.enabled:
+            c1 = tel.counters_snapshot()
+            counters = {
+                k: v - c0.get(k, 0) for k, v in c1.items() if v != c0.get(k, 0)
+            }
         if self.verbose:
             print(
                 f"[session] {unit.algo:7s} S={unit.sample_size:4d} "
@@ -864,6 +995,7 @@ class TuningSession:
             n_samples_used=n_used,
             wall_s=wall,
             stage_s=stage_acc,
+            counters=counters,
         )
 
     # -- dataset-served paths (paper section VI.B) ---------------------------
@@ -880,8 +1012,9 @@ class TuningSession:
             n_samples=budget,
         )
 
-    def _rf_unit_batched(self, unit: ExperimentUnit, rf_pool: int = 2048
-                         ) -> list[TuningResult]:
+    def _rf_unit_batched(self, unit: ExperimentUnit,
+                         add_stages: Callable[[BaseMeasurement], None],
+                         rf_pool: int = 2048) -> list[TuningResult]:
         """The unit's RF experiments, fit in ONE vectorized histogram-forest
         pass.  Per experiment, as the paper: train on a disjoint S-10 dataset
         chunk, measure the model's top-10 predictions over a candidate pool,
@@ -890,7 +1023,8 @@ class TuningSession:
         Bootstrap draws come from the FULL cell's stream (one
         ``(E_total * trees, n_train)`` draw from ``spec.seed``), sliced to
         this unit's rows — experiment ``e`` resamples identically however
-        the cell is split.
+        the cell is split.  ``add_stages`` receives each prediction
+        measurement once it is done, for the unit's stage breakdown.
         """
         spec = self.spec
         dataset = self._get_dataset()
@@ -920,6 +1054,7 @@ class TuningSession:
             measurement = self._make_measurement(exp_seed)
             best = np.argsort(preds[i], kind="stable")[:top_k]
             run_vals = measurement.measure_batch(self.space.decode_batch(pool[best]))
+            add_stages(measurement)
             j = int(np.argmin(run_vals))
             results.append(
                 TuningResult(
@@ -977,6 +1112,10 @@ class TuningSession:
         if dataset is not None:
             result["dataset_best"] = float(dataset.optimum)
         extra_out = {**self._backend_extra(self.measurement), **dict(extra or {})}
+        if self._last_telemetry:
+            # counter totals snapshotted at matrix completion (observability
+            # only — the report's Telemetry section reads them back)
+            extra_out["telemetry"] = self._last_telemetry
         if self._last_cell_walls:
             # per-cell search cost (sum of unit wall-clocks, parallel or
             # not), with the staged pipeline's compile-vs-measure split
@@ -1035,6 +1174,7 @@ def tune_matrix(
     out_dir: str | None = None,
     verbose: bool = False,
     extra: dict | None = None,
+    telemetry_dir: str | None = None,
 ) -> MatrixResults:
     """Run the (algorithms x design) experiment matrix described by ``spec``.
 
@@ -1050,32 +1190,49 @@ def tune_matrix(
     When ``out_dir`` is given, the full results land in
     ``<cache_key>.npz`` with a versioned :class:`RunRecord` JSON (including
     the backend's true optimum, when it can compute one) next to it.
+
+    ``telemetry_dir`` enables span tracing: the run appends JSONL trace
+    events to ``<telemetry_dir>/trace.jsonl`` (parallel workers write
+    ``trace.shard<k>.jsonl`` beside it, merged at join) — inspect with
+    ``python -m repro_torch.telemetry <telemetry_dir>``.  Pure
+    observability: results, stores, and journals are bit-identical with it
+    on or off.
     """
-    session = TuningSession(spec, verbose=verbose)
+    telemetry = None
+    if telemetry_dir is not None:
+        from ..telemetry.tracer import for_run_dir
+
+        os.makedirs(telemetry_dir, exist_ok=True)
+        telemetry = for_run_dir(telemetry_dir)
+    session = TuningSession(spec, verbose=verbose, telemetry=telemetry)
     t0 = monotonic()
-    results = session.run_matrix(
-        shards=shards,
-        executor=executor,
-        max_workers=max_workers,
-        resume=resume,
-        unit_experiments=unit_experiments,
-        futures_pool=futures_pool,
-        pipeline_workers=pipeline_workers,
-        scheduler=scheduler,
-        compile_cache=compile_cache,
-    )
-    if out_dir is not None:
-        name = (spec.cache_key or spec.default_cache_key()).replace("/", "_")
-        os.makedirs(out_dir, exist_ok=True)
-        artifact = f"{name}.npz"
-        results.save(os.path.join(out_dir, artifact))
-        record = session.make_record(
-            results,
-            wall_s=monotonic() - t0,
-            artifact=artifact,
-            extra=extra,
-            with_optimum=True,
+    try:
+        results = session.run_matrix(
+            shards=shards,
+            executor=executor,
+            max_workers=max_workers,
+            resume=resume,
+            unit_experiments=unit_experiments,
+            futures_pool=futures_pool,
+            pipeline_workers=pipeline_workers,
+            scheduler=scheduler,
+            compile_cache=compile_cache,
         )
-        record.save(os.path.join(out_dir, f"{name}.json"))
-        session.last_record = record
+        if out_dir is not None:
+            name = (spec.cache_key or spec.default_cache_key()).replace("/", "_")
+            os.makedirs(out_dir, exist_ok=True)
+            artifact = f"{name}.npz"
+            results.save(os.path.join(out_dir, artifact))
+            record = session.make_record(
+                results,
+                wall_s=monotonic() - t0,
+                artifact=artifact,
+                extra=extra,
+                with_optimum=True,
+            )
+            record.save(os.path.join(out_dir, f"{name}.json"))
+            session.last_record = record
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     return results

@@ -19,6 +19,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..telemetry.null import NULL_TELEMETRY
 from .measurement import BaseMeasurement
 from .searchers.base import Searcher, TuningResult
 from .space import Config
@@ -31,27 +32,40 @@ def drive(
     measurement: BaseMeasurement,
     budget: int,
     dispatch: str = "batch",
+    telemetry=None,
 ) -> TuningResult:
     """Run ``searcher`` to completion against ``measurement``.
 
     ``dispatch="batch"`` hands each proposal batch to ``measure_batch`` in
     one call; ``dispatch="one"`` measures config-by-config.  Both consume the
-    same proposals in the same order.
+    same proposals in the same order.  ``telemetry`` (a
+    :mod:`repro_torch.telemetry` sink; default no-op) wraps each ask/tell
+    iteration in a ``round`` span and counts the non-finite penalties told
+    to the searcher (``inf_penalties_told``) — observability only, the
+    loop's results are identical with or without it.
     """
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}")
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     searcher.start(budget)
+    rnd = 0
     while True:
         configs = searcher.ask()
         if not configs:
             break
-        if dispatch == "batch":
-            values = measurement.measure_batch(configs)
-        else:
-            values = np.array(
-                [measurement.measure(c) for c in configs], dtype=np.float64
-            )
-        searcher.tell(configs, values)
+        with tel.span("round", round=rnd, algo=searcher.name, asked=len(configs)):
+            if dispatch == "batch":
+                values = measurement.measure_batch(configs)
+            else:
+                values = np.array(
+                    [measurement.measure(c) for c in configs], dtype=np.float64
+                )
+            searcher.tell(configs, values)
+        if tel.enabled:
+            bad = int(len(values) - np.count_nonzero(np.isfinite(values)))
+            if bad:
+                tel.inc("inf_penalties_told", bad)
+        rnd += 1
     return searcher.finish()
 
 
@@ -212,7 +226,9 @@ class DiskCachedMeasurement(BaseMeasurement):
 
     Keys are ``{prefix}|{config_key}``.  ``n_samples`` counts every sample
     *served* (hit or miss), so budget audits are identical whether the cache
-    is cold or warm; ``n_misses`` counts actual inner measurements.
+    is cold or warm; ``n_misses`` counts actual inner measurements.  With
+    telemetry attached, the ``store_hits`` / ``store_misses`` counters count
+    the same split.
     """
 
     def __init__(self, inner: BaseMeasurement, store: MeasurementStore, prefix: str):
@@ -250,6 +266,12 @@ class DiskCachedMeasurement(BaseMeasurement):
              for i, k in enumerate(keys)],
             dtype=bool,
         )
+        if self.telemetry.enabled:
+            n_miss = int(miss.sum())
+            if n_miss:
+                self.telemetry.inc("store_misses", n_miss)
+            if len(configs) - n_miss:
+                self.telemetry.inc("store_hits", len(configs) - n_miss)
         vals = np.full(len(configs), np.nan, dtype=np.float64)
         # walk the batch in contiguous hit/miss runs so the inner backend's
         # per-sample state stays aligned with a cold run
@@ -308,3 +330,7 @@ class DiskCachedMeasurement(BaseMeasurement):
 
     def save(self) -> None:
         self._store.save()
+
+    def set_telemetry(self, telemetry) -> None:
+        super().set_telemetry(telemetry)
+        self._inner.set_telemetry(telemetry)

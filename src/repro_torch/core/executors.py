@@ -10,13 +10,15 @@ fragments the session merges deterministically by unit key.  Built-ins:
 * ``"process"`` — ``multiprocessing`` (spawn) fan-out.  Under the default
   *work-stealing* scheduler each worker process builds ONE persistent
   session at pool start (initializer), then pulls units one at a time from
-  the shared submit queue.  Each worker writes to its own
-  ``store_path.<ns8>.shard<pid>`` (seeded from the warm parent store),
+  the shared submit queue.  Each worker takes a distinct slot ``k`` from a
+  queue of indices, pins card ``k`` of :func:`cuda_devices` (as the
+  ``device`` threads do) and writes to its own
+  ``store_path.<ns8>.shard<k>`` (seeded from the warm parent store),
   journals completed units into it, and the parent glob-merges shard stores
-  when the pool joins.  Each worker opens its own CUDA context, so on one
-  card concurrent workers would time each other's kernels: the session
-  refuses more ``process`` workers than cards for the ``cuda`` backend on
-  the card; timing runs use ``serial`` or ``device``.
+  when the pool joins; under ``static`` payload ``k`` runs on card ``k``.
+  Each worker opens its own CUDA context, so on one card concurrent workers
+  would time each other's kernels: the session refuses more ``process``
+  workers than cards for the ``cuda`` backend on the card.
 * ``"futures"`` — the grouped worker payload submitted to ANY
   ``concurrent.futures.Executor`` (``run_matrix(futures_pool=...)``); without
   one a spawn-context ``ProcessPoolExecutor`` is created for the call.  The
@@ -35,6 +37,13 @@ unit per submission, ``as_completed`` streaming) or ``"static"`` (the
 round-robin one-payload-per-worker partition).  Unit *results* merge by unit
 key, so both schedules — and any completion order — are bit-identical to
 the serial loop.
+
+With telemetry on, each worker appends to its own ``trace.shard<k>.jsonl``
+beside the parent trace; the parent absorbs them at join (and after a kill,
+on resume), gauges ``scheduler.queue_depth`` as work retires and counts
+``scheduler.steals`` under the stealing scheduler.  ``session.last_unit_devices``
+records, per unit key, the card (``str`` of the device) and the worker that
+ran it.
 
 Parallel executors collect worker results as they complete and fail fast:
 the first worker exception cancels outstanding work, absorbs completed
@@ -213,6 +222,9 @@ def recover_shard_stores(session) -> int:
         os.path.join(d, f) for f in os.listdir(d) if pattern.fullmatch(f)
     )
     merge_shard_stores(session, leftovers)
+    # a killed run's workers also leave trace.shard<k>.jsonl files beside the
+    # parent trace; fold them in so the resumed trace keeps their spans
+    session.telemetry.recover()
     return len(leftovers)
 
 
@@ -264,6 +276,13 @@ def _make_payloads(plan: ExecutionPlan, spec_dict: dict) -> list[dict]:
     return _payloads_for_groups(plan, spec_dict, [plan.units[k::n] for k in range(n)])
 
 
+def _card_names(n: int) -> list[str | None]:
+    """What worker ``k < n`` pins: card ``k`` of :func:`cuda_devices` as a
+    string a spawned process can rebuild, ``None`` past the last card."""
+    devices = [str(d) for d in cuda_devices()]
+    return [devices[k] if k < len(devices) else None for k in range(n)]
+
+
 def _make_unit_payloads(plan: ExecutionPlan, spec_dict: dict) -> list[dict]:
     """One payload per unit (the stealing schedule for the generic futures
     seam): any pool drains the queue in completion order, at the cost of a
@@ -279,6 +298,10 @@ def _payloads_for_groups(
     session = plan.session
     dataset = _dataset_arrays(session)
     base_store_path = _warm_store_path(session)
+    # telemetry fan-out: each worker appends to its own trace.shard<k>.jsonl
+    # beside the parent trace (None when telemetry is off — workers then run
+    # the exact disabled path)
+    tel = session.telemetry
     return [
         {
             "spec": spec_dict,
@@ -286,19 +309,31 @@ def _payloads_for_groups(
             "store_path": shard_store_path(session, k),
             "base_store_path": base_store_path,
             "dataset": dataset,
+            "trace_path": tel.shard_path(k),
+            "trace_src": tel.shard_src(k),
         }
         for k, group in enumerate(groups)
     ]
 
 
-def _worker_session(spec_dict: dict, store_path, base_store_path, dataset):
+def _worker_telemetry(trace_path, src: str | None):
+    """A worker's own trace writer, or ``None`` when telemetry is off."""
+    if trace_path is None:
+        return None
+    from ..telemetry.tracer import Telemetry
+
+    return Telemetry(trace_path, src=src or "shard")
+
+
+def _worker_session(spec_dict: dict, store_path, base_store_path, dataset,
+                    telemetry=None):
     """A session rebuilt from the serialized spec, its shard store seeded
     from the parent's warm store and its dataset from the parent's arrays."""
     from .api import TuningSession, TuningSpec  # lazy: avoid an import cycle
     from .dataset import SampleDataset
 
     spec = TuningSpec.from_dict(spec_dict)
-    session = TuningSession(spec, store_path=store_path)
+    session = TuningSession(spec, store_path=store_path, telemetry=telemetry)
     if (
         base_store_path is not None
         and session.store is not None
@@ -315,27 +350,57 @@ def _worker_session(spec_dict: dict, store_path, base_store_path, dataset):
 
 def _unit_worker(payload: dict) -> list[dict]:
     """Runs one payload's units in a worker (any process with the package
-    importable and the store paths reachable), journals each completed unit
-    into the shard store, and returns JSON-able :class:`UnitResult` dicts."""
-    session = _worker_session(
-        payload["spec"], payload["store_path"],
-        payload.get("base_store_path"), payload.get("dataset"),
-    )
-    journal = session.unit_journal()
-    out = []
-    for d in payload["units"]:
-        result = session.run_unit(ExperimentUnit.from_dict(d))
-        if journal is not None:
-            journal.put(result)
-        out.append(result.to_dict())
-    session.save_store()
-    close_store(session.store)
+    importable and the store paths reachable), pinned to the payload's
+    ``device`` when it names one, journals each completed unit into the
+    shard store, and returns JSON-able :class:`UnitResult` dicts."""
+    device = payload.get("device")
+    telemetry = _worker_telemetry(payload.get("trace_path"), payload.get("trace_src"))
+    try:
+        with _pin_named(device):
+            session = _worker_session(
+                payload["spec"], payload["store_path"],
+                payload.get("base_store_path"), payload.get("dataset"), telemetry,
+            )
+            journal = session.unit_journal()
+            out = []
+            for d in payload["units"]:
+                result = session.run_unit(ExperimentUnit.from_dict(d))
+                if journal is not None:
+                    journal.put(result)
+                out.append(result.to_dict())
+            session.save_store()
+            close_store(session.store)
+    finally:
+        if telemetry is not None:
+            # flush the shard trace (counters event + fh) even on a crash, so
+            # the parent's fail-fast absorb keeps the spans written so far
+            telemetry.close()
     return out
+
+
+def _absorb_trace_shards(plan: ExecutionPlan, payloads: list[dict]) -> None:
+    """Fold worker trace shards into the parent trace, deterministically
+    (shard-index order; each shard's own event order preserved)."""
+    paths = [p.get("trace_path") for p in payloads]
+    plan.session.telemetry.absorb([p for p in paths if p is not None])
+
+
+def _note_devices(plan: ExecutionPlan, payloads: list[dict], devices: list,
+                  worker: str) -> None:
+    """Record, per unit of payload ``k``, the card it was pinned to
+    (``devices[k]``) and the worker that ran it (``<worker><k>``)."""
+    for k, (p, device) in enumerate(zip(payloads, devices, strict=True)):
+        for d in p["units"]:
+            plan.session.last_unit_devices[ExperimentUnit.from_dict(d).key] = {
+                "device": None if device is None else str(device),
+                "worker": f"{worker}{k}",
+            }
 
 
 def _collect(plan: ExecutionPlan, payloads: list[dict],
              worker_results: list[list[dict]]) -> list[UnitResult]:
     merge_shard_stores(plan.session, [p["store_path"] for p in payloads])
+    _absorb_trace_shards(plan, payloads)
     return [
         UnitResult.from_dict(d) for results in worker_results for d in results
     ]
@@ -352,16 +417,24 @@ def _drain_futures(plan: ExecutionPlan, payloads: list[dict],
     """
     import concurrent.futures
 
+    tel = plan.session.telemetry
     results: list[list[dict] | None] = [None] * len(futures)
     index = {f: i for i, f in enumerate(futures)}
+    done = 0
     try:
         for f in concurrent.futures.as_completed(futures):
             results[index[f]] = f.result()
+            done += 1
+            if tel.enabled:
+                # payloads not yet retired (per-unit payloads under the
+                # stealing scheduler, per-worker groups under static)
+                tel.gauge("scheduler.queue_depth", len(futures) - done)
     except BaseException:
         for f in futures:
             f.cancel()
         concurrent.futures.wait(futures)
         merge_shard_stores(plan.session, [p["store_path"] for p in payloads])
+        _absorb_trace_shards(plan, payloads)
         raise
     return results
 
@@ -372,10 +445,11 @@ def _drain_futures(plan: ExecutionPlan, payloads: list[dict],
 def _steal_context(plan: ExecutionPlan, spec_dict: dict) -> dict:
     """The per-WORKER context for the stealing scheduler, shipped once per
     worker (pool initializer / thread init) instead of once per unit.
-    Workers derive their shard names from their identity, so the parent need
-    not know worker pids up front."""
+    Workers derive their shard names (store and trace) from their identity,
+    their slot ``k``; ``devices`` names the card each slot pins."""
     session = plan.session
     has_store = session.spec.store is not None and session._store_path is not None
+    tel = session.telemetry
     return {
         "spec": spec_dict,
         "store_base": session._store_path if has_store else None,
@@ -384,29 +458,45 @@ def _steal_context(plan: ExecutionPlan, spec_dict: dict) -> dict:
         "shard_ns": shard_namespace(session) if has_store else None,
         "base_store_path": _warm_store_path(session),
         "dataset": _dataset_arrays(session),
+        "trace_path": tel.path if tel.enabled else None,
+        "devices": _card_names(plan.max_workers),
     }
 
 
 def _build_worker_state(ctx: dict, ident: int) -> dict:
-    """One persistent worker session keyed by ``ident`` (pid for process
-    workers, device index for device threads), with shard store
-    ``<base>.<ns8>.shard<ident>`` — a name the recovery glob understands."""
+    """One persistent worker session keyed by its slot ``ident`` (the card
+    index it pins), with shard store ``<base>.<ns8>.shard<ident>`` and trace
+    shard ``trace.shard<ident>.jsonl`` — names the recovery globs
+    understand."""
     store_path = (
         None
         if ctx.get("store_base") is None
         else f"{ctx['store_base']}.{ctx['shard_ns']}.shard{ident}"
     )
+    telemetry = None
+    if ctx.get("trace_path"):
+        from ..telemetry.events import shard_file
+
+        telemetry = _worker_telemetry(shard_file(ctx["trace_path"], ident), f"shard{ident}")
     session = _worker_session(
-        ctx["spec"], store_path, ctx.get("base_store_path"), ctx.get("dataset")
+        ctx["spec"], store_path, ctx.get("base_store_path"), ctx.get("dataset"),
+        telemetry,
     )
-    return {"session": session, "journal": session.unit_journal(), "ident": int(ident)}
+    return {"session": session, "journal": session.unit_journal(),
+            "telemetry": telemetry, "ident": int(ident)}
 
 
 def _close_worker_state(state: dict | None) -> None:
-    """Flush a worker's shard store tail and release its file."""
-    if state is not None:
+    """Flush a worker's shard store tail and its trace (counters + fh), and
+    release both files."""
+    if state is None:
+        return
+    try:
         state["session"].save_store()
         close_store(state["session"].store)
+    finally:
+        if state["telemetry"] is not None:
+            state["telemetry"].close()
 
 
 def _run_state_unit(state: dict, unit_dict: dict) -> tuple[int, dict]:
@@ -419,17 +509,46 @@ def _run_state_unit(state: dict, unit_dict: dict) -> tuple[int, dict]:
     return state["ident"], result.to_dict()
 
 
-def _drain_steal(futures: list) -> list[dict]:
+def _note_steal(plan: ExecutionPlan, i: int, n_workers: int, ident: int, worker: str,
+                device: str | None) -> None:
+    """Bookkeeping for unit ``i`` retired by slot ``ident``: where it ran,
+    and whether the queue moved it off its static round-robin owner
+    (``i % n_workers``), counted as ``scheduler.steals``."""
+    session = plan.session
+    session.last_unit_devices[plan.units[i].key] = {"device": device, "worker": worker}
+    if session.telemetry.enabled and ident != i % n_workers:
+        session.telemetry.inc("scheduler.steals")
+
+
+def _gauge_retired(plan: ExecutionPlan, futures: list) -> None:
+    """Gauge ``scheduler.queue_depth`` (units not yet retired) as each
+    future completes — from its done callback, so the time series is live
+    while the parent waits."""
+    tel = plan.session.telemetry
+    if not tel.enabled:
+        return
+    lock = threading.Lock()
+    left = [len(futures)]
+
+    def retired(_future) -> None:
+        with lock:
+            left[0] -= 1
+            tel.gauge("scheduler.queue_depth", left[0])
+
+    for f in futures:
+        f.add_done_callback(retired)
+
+
+def _drain_steal(futures: list) -> list[tuple]:
     """Collect per-unit futures as they complete, failing fast on the first
     worker exception (the caller owns pool shutdown + shard merge on both
     paths).  Results come back in submission order."""
     import concurrent.futures
 
-    results: list[dict | None] = [None] * len(futures)
+    results: list[tuple | None] = [None] * len(futures)
     index = {f: i for i, f in enumerate(futures)}
     for f in concurrent.futures.as_completed(futures):
-        _, rd = f.result()        # re-raises the worker's exception
-        results[index[f]] = rd
+        results[index[f]] = f.result()     # re-raises the worker's exception
     return results
 
 
@@ -441,20 +560,28 @@ def _drain_steal(futures: list) -> list[dict]:
 _STEAL_STATE: dict = {}
 
 
-def _steal_init(ctx: dict) -> None:
-    """Pool initializer (runs once per spawned worker process): build the
-    persistent session keyed by pid and register its flush at process exit
-    — ``ProcessPoolExecutor.shutdown(wait=True)`` joins workers, so the
-    parent merges only after every shard store is saved."""
+def _steal_init(ctx: dict, slots) -> None:
+    """Pool initializer (runs once per spawned worker process): take a
+    distinct slot ``k`` from ``slots`` (a queue of indices — a pid names no
+    card), build the persistent session keyed by it under card ``k``'s pin,
+    and register its flush at process exit — ``ProcessPoolExecutor.shutdown
+    (wait=True)`` joins workers, so the parent merges only after every shard
+    store is saved."""
     import atexit
 
-    state = _build_worker_state(ctx, ident=os.getpid())
+    k = slots.get()
+    with _pin_named(ctx["devices"][k]):
+        state = _build_worker_state(ctx, ident=k)
+    state["device"] = ctx["devices"][k]
     _STEAL_STATE["state"] = state
     atexit.register(_close_worker_state, state)
 
 
-def _steal_unit_task(unit_dict: dict) -> tuple[int, dict]:
-    return _run_state_unit(_STEAL_STATE["state"], unit_dict)
+def _steal_unit_task(unit_dict: dict) -> tuple[int, int, dict]:
+    state = _STEAL_STATE["state"]
+    with _pin_named(state["device"]):
+        ident, rd = _run_state_unit(state, unit_dict)
+    return ident, os.getpid(), rd
 
 
 def _run_process_static(plan: ExecutionPlan) -> list[UnitResult]:
@@ -465,6 +592,9 @@ def _run_process_static(plan: ExecutionPlan) -> list[UnitResult]:
 
     spec_dict = _check_shippable(plan.session)
     payloads = _make_payloads(plan, spec_dict)
+    # payload k measures on card k
+    for p, device in zip(payloads, _card_names(len(payloads)), strict=True):
+        p["device"] = device
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=len(payloads),
         mp_context=multiprocessing.get_context("spawn"),
@@ -474,6 +604,7 @@ def _run_process_static(plan: ExecutionPlan) -> list[UnitResult]:
         worker_results = _drain_futures(plan, payloads, futures)
     finally:
         pool.shutdown()
+    _note_devices(plan, payloads, [p["device"] for p in payloads], "payload")
     return _collect(plan, payloads, worker_results)
 
 
@@ -489,18 +620,23 @@ def _run_process(plan: ExecutionPlan) -> list[UnitResult]:
     spec_dict = _check_shippable(plan.session)
     ctx = _steal_context(plan, spec_dict)
     n = max(1, min(plan.max_workers, len(plan.units)))
+    mp = multiprocessing.get_context("spawn")
+    slots = mp.Queue()
+    for k in range(n):
+        slots.put(k)
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=n,
-        mp_context=multiprocessing.get_context("spawn"),
+        mp_context=mp,
         initializer=_steal_init,
-        initargs=(ctx,),
+        initargs=(ctx, slots),
     )
     try:
         futures = [
             pool.submit(_steal_unit_task, u.to_dict()) for u in plan.units
         ]
+        _gauge_retired(plan, futures)
         try:
-            dicts = _drain_steal(futures)
+            done = _drain_steal(futures)
         except BaseException:
             for f in futures:
                 f.cancel()
@@ -511,9 +647,12 @@ def _run_process(plan: ExecutionPlan) -> list[UnitResult]:
             raise
     finally:
         pool.shutdown(wait=True)
-    # worker pids are not known up front: the recovery glob merges them
+        slots.close()          # slots no worker took stay unread
+    # the recovery glob merges every worker's shard store and trace
     recover_shard_stores(plan.session)
-    return [UnitResult.from_dict(d) for d in dicts]
+    for i, (ident, pid, _) in enumerate(done):
+        _note_steal(plan, i, n, ident, f"pid{pid}", ctx["devices"][ident])
+    return [UnitResult.from_dict(d) for _, _, d in done]
 
 
 register_executor(Executor(name="process", run=_run_process, parallel=True))
@@ -573,6 +712,14 @@ def _pin(device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _pin_named(device: str | None):
+    """:func:`_pin` for a device a spawned worker received by name;
+    ``None`` (a worker past the last card) pins nothing."""
+    import torch
+
+    return contextlib.nullcontext() if device is None else _pin(torch.device(device))
 
 
 def _device_worker(payload: dict, device) -> list[dict]:
@@ -660,7 +807,9 @@ def _run_device(plan: ExecutionPlan) -> list[UnitResult]:
         if error is not None:
             # completed cards' journaled units survive for resume=True
             merge_shard_stores(plan.session, [p["store_path"] for p in payloads])
+            _absorb_trace_shards(plan, payloads)
             raise error
+        _note_devices(plan, payloads, devices[: len(payloads)], "card")
         return _collect(plan, payloads, worker_results)
     return _run_device_steal(plan, spec_dict, devices)
 
@@ -680,6 +829,7 @@ def _run_device_steal(
     queue = iter(range(len(unit_dicts)))
     queue_lock = threading.Lock()
     failed = threading.Event()
+    retired = [0]
 
     def card(k: int) -> None:
         with _pin(devices[k]):
@@ -691,6 +841,12 @@ def _run_device_steal(
                 return
             with _pin(devices[k]):
                 _, results[i] = _run_state_unit(state, unit_dicts[i])
+            with queue_lock:
+                retired[0] += 1
+                _note_steal(plan, i, n, k, f"card{k}", str(devices[k]))
+                if plan.session.telemetry.enabled:
+                    plan.session.telemetry.gauge(
+                        "scheduler.queue_depth", len(unit_dicts) - retired[0])
 
     _, error = _on_card_threads(n, card, failed)
     for s in states:

@@ -16,12 +16,12 @@ winning config ``final_repeats`` times (paper: 10) and returns the median.
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from ..telemetry.null import NULL_TELEMETRY
 from .clock import monotonic
 from .space import Config
 
@@ -34,14 +34,6 @@ class StageClock:
     def __init__(self) -> None:
         self._acc: dict[str, float] = {}
         self._lock = threading.Lock()
-
-    @contextmanager
-    def stage(self, name: str):
-        t0 = monotonic()
-        try:
-            yield
-        finally:
-            self.add(name, monotonic() - t0)
 
     def add(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -86,6 +78,15 @@ class BaseMeasurement:
     def __init__(self) -> None:
         self.n_samples = 0
         self.n_dispatches = 0
+        #: telemetry sink (observability only — never feeds values); the
+        #: no-op default keeps the disabled path the plain code path
+        self.telemetry = NULL_TELEMETRY
+
+    def set_telemetry(self, telemetry) -> None:
+        """Attach a telemetry sink (``None`` resets to the no-op default).
+        Wrapper measurements forward to their inner backend so stage events
+        and counters come from the layer that actually does the work."""
+        self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
 
     def _measure_one(self, config: Config) -> float:  # pragma: no cover
         raise NotImplementedError
@@ -256,3 +257,7 @@ class CachedMeasurement(BaseMeasurement):
         super().reset()
         self._cache.clear()
         self._inner.reset()
+
+    def set_telemetry(self, telemetry) -> None:
+        super().set_telemetry(telemetry)
+        self._inner.set_telemetry(telemetry)

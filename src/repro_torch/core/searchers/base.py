@@ -192,17 +192,20 @@ class Searcher(ABC):
         measurement: BaseMeasurement,
         budget: int,
         dispatch: str = "batch",
+        telemetry=None,
     ) -> TuningResult:
         """Drive a full search: ``dispatch="batch"`` routes each proposal
         batch through ``measurement.measure_batch`` (the hot path);
         ``dispatch="one"`` measures sequentially (identical history).
+        ``telemetry`` is the engine loop's observability sink.
 
         A thin shim over the engine loop; ``repro_torch.tune(TuningSpec(...))``
         owns measurement construction, caching, and the final re-measurement.
         """
         from ..engine import drive   # local import: engine depends on this module
 
-        return drive(self, measurement, budget, dispatch=dispatch)
+        return drive(self, measurement, budget, dispatch=dispatch,
+                     telemetry=telemetry)
 
     # -- internals ------------------------------------------------------------
     def _require_session(self) -> "_Session":

@@ -31,6 +31,7 @@ Executors (:mod:`repro_torch.core.executors`) consume units and return
 from __future__ import annotations
 
 import json
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,7 +45,20 @@ __all__ = [
     "UnitResult",
     "build_units",
     "merge_unit_results",
+    "unit_digest",
 ]
+
+
+def unit_digest(unit_key: str) -> str:
+    """Filesystem-safe 8-hex digest of a unit key (keys carry ``/`` + ``:``).
+
+    The unit's cross-host identity: the serving fleet names claim and done
+    marker files ``<job>.u<digest>.*`` with it, so every worker — sharing
+    nothing but the queue directory — derives the same name for the same
+    unit.  crc32 over the stable :attr:`ExperimentUnit.key`, as the
+    reference computes it.
+    """
+    return f"{zlib.crc32(unit_key.encode('utf-8')) & 0xFFFFFFFF:08x}"
 
 
 @dataclass(frozen=True)
@@ -115,9 +129,9 @@ class UnitResult:
     as plain dicts.  ``stage_s`` is the unit's per-stage wall-clock breakdown
     (``{"screen": ..., "compile": ..., "time": ...}``) when the backend is a
     staged pipeline; ``{}`` for unstaged backends and pre-breakdown journal
-    entries.  ``counters`` is the reference's telemetry counter delta: the
-    port has no telemetry yet, so it stays ``{}``, and journal entries keep
-    the reference's JSON shape.
+    entries.  ``counters`` is the unit's telemetry counter delta (compiles,
+    store hits, invalid configs...) — observability only, ``{}`` when
+    telemetry is disabled, never part of the unit's scientific identity.
     """
 
     unit: ExperimentUnit

@@ -28,6 +28,16 @@ wall-clock into provenance:
   ``torch.cuda.synchronize()``.  The aggregate is the median; all repeats
   are recorded (``repeats_for``).
 
+With a telemetry sink attached (:meth:`BaseMeasurement.set_telemetry`),
+every stage also emits a ``stage`` trace event carrying the same duration
+its clock was charged, so a trace's per-stage totals equal ``stage_s``; the
+``compiles`` counter counts cache fills (as ``n_compiles`` does) and
+``invalid.<rule>`` counts penalties by validity rule (``align`` / ``block``
+/ ``grid`` / ``smem``) or by failing stage (``compile`` / ``run``).  The
+reference's persistent compile cache counters (``pcache.*``,
+``compile_cache_hits``) and its prefetch gauge have no counterpart: there
+is no per-config compile to cache or prefetch.
+
 ``device="cuda"`` (the default) measures on the card and raises where there
 is none; ``device="cpu"`` runs the kernels' plain versions, for tests of
 the loop on a machine without a card.  A CPU number is never reported as a
@@ -37,6 +47,7 @@ device time: provenance names the device it came from.
 from __future__ import annotations
 
 import platform
+from contextlib import contextmanager
 from typing import Callable, Sequence
 
 import numpy as np
@@ -136,6 +147,8 @@ class CudaMeasurement(BaseMeasurement):
         device = self.device
         self.n_compiles += 1
         self.run_compiles += 1
+        if self.telemetry.enabled:
+            self.telemetry.inc("compiles")
 
         def fn():
             return self.workload.run(inputs, run_cfg, device)
@@ -151,9 +164,25 @@ class CudaMeasurement(BaseMeasurement):
         return fn
 
     # -- pipeline stages -------------------------------------------------------
+    @contextmanager
+    def _staged(self, name: str, **attrs):
+        """Charge the stage clock AND (when telemetry is on) emit a ``stage``
+        trace event with the same duration — one timing source for both, so
+        the trace's per-stage totals reconcile exactly with ``stage_times``."""
+        t0 = monotonic()
+        try:
+            yield
+        finally:
+            dur = monotonic() - t0
+            self.clock.add(name, dur)
+            if self.telemetry.enabled:
+                self.telemetry.stage(
+                    name, dur, **{k: v for k, v in attrs.items() if v is not None}
+                )
+
     def _stage_screen(self, config: Config) -> InvalidMeasurement | None:
         """Validity pre-screen; ``None`` means the config may launch."""
-        with self.clock.stage("screen"):
+        with self._staged("screen"):
             reason = validate_config(self.workload, config)
         if reason is None:
             return None
@@ -164,13 +193,15 @@ class CudaMeasurement(BaseMeasurement):
         hit = self._compiled.get(gkey)
         if hit is not None:
             return hit
-        with self.clock.stage("compile"):
+        with self._staged("compile", key=str(gkey)):
             return self._compile_now(config, gkey)
 
-    def _stage_time(self, fn: Callable, repeats: int) -> list[float] | InvalidMeasurement:
+    def _stage_time(
+        self, fn: Callable, repeats: int, key: str | None = None
+    ) -> list[float] | InvalidMeasurement:
         """Sequential fenced timing: the fence sits inside the timed region."""
         times = []
-        with self.clock.stage("time"):
+        with self._staged("time", key=key):
             for _ in range(repeats):
                 try:
                     t0 = self._timer()
@@ -187,10 +218,19 @@ class CudaMeasurement(BaseMeasurement):
         log: dict[str, list[float]],
     ) -> float:
         """Fold a stage-pipeline outcome into the served value + the logs."""
-        with self.clock.stage("record"):
+        with self._staged("record", key=key):
             if isinstance(out, InvalidMeasurement):
                 self.invalid[key] = out
                 self._run_invalid.add(key)
+                if self.telemetry.enabled:
+                    # by validity rule (align/block/grid/smem), or by the
+                    # failing stage for compile/run penalties
+                    rule = (
+                        out.reason.split(":", 1)[0]
+                        if out.stage == "validity"
+                        else out.stage
+                    )
+                    self.telemetry.inc(f"invalid.{rule}")
                 return out.penalty
             log[key] = out
             return float(np.median(out))
@@ -204,7 +244,7 @@ class CudaMeasurement(BaseMeasurement):
         fn = self._stage_compile(config)
         if isinstance(fn, InvalidMeasurement):
             return fn
-        return self._stage_time(fn, repeats)
+        return self._stage_time(fn, repeats, key=config_key(config))
 
     def _measure_one(self, config: Config) -> float:
         return self._stage_record(

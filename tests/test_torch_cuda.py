@@ -178,3 +178,37 @@ def test_cuda_matrix_replays_warm_on_the_device_executor(card, tmp_path):
 
     assert values(warm_path) == values(cold_path)
     assert not [f for f in tmp_path.iterdir() if ".shard" in f.name]
+
+
+def test_cuda_fleet_fills_a_miss_on_the_card(card, tmp_path):
+    """Serving on the card at a small size: a query for a geometry no one
+    tuned misses and queues a cuda job; a fleet worker tunes it on the card
+    (mandelbrot launches), the collector indexes the winner under the card's
+    name, and the query hits; the winner's config through the CUDA kernel
+    equals the plain version exactly."""
+    from repro_torch import ExperimentDesign
+    from repro_torch.core import make_store
+    from repro_torch.serving import FleetWorker, JobQueue, best_config, collect_jobs
+
+    name = torch.cuda.get_device_name(card)
+    path, qdir = str(tmp_path / "serve.sqlite"), str(tmp_path / "queue")
+    store = make_store("sqlite", path)
+    spec = TuningSpec(kernel="mandelbrot", backend="cuda", algorithms=("rs", "ga"),
+                      backend_kwargs={"x": 1000, "y": 1001, "repeats": 2},
+                      design=ExperimentDesign(sample_sizes=(12,), n_experiments=(2,),
+                                              final_repeats=3))
+    miss = best_config(store, "mandelbrot", 1000, 1001, name,
+                       queue=JobQueue(store, "sqlite", path, qdir), enqueue_spec=spec)
+    store.close()
+    assert miss.status == "miss" and miss.job_id
+    LAUNCHES["mandelbrot"].n = 0
+    assert FleetWorker("sqlite", path, qdir, ident="card0").drain(max_jobs=1) == 1
+    torch.cuda.synchronize()
+    assert LAUNCHES["mandelbrot"].n > 0
+    assert collect_jobs("sqlite", path, qdir) == [miss.job_id]
+    store = make_store("sqlite", path)
+    hit = best_config(store, "mandelbrot", 1000, 1001, name)
+    store.close()
+    assert hit.status == "hit" and hit.matched_key == f"mandelbrot|x=1000|y=1001|{name}"
+    assert torch.equal(mandelbrot(1000, 1001, hit.config, device=card),
+                       mandelbrot_ref(1000, 1001, device=card))

@@ -247,6 +247,35 @@ def test_each_card_keeps_its_own_thread_when_work_ends_early(monkeypatch, schedu
         assert set(threads_by_card) == {"cpu:0", "cpu:1"}
 
 
+@pytest.mark.parametrize("scheduler", ["steal", "static"])
+def test_process_workers_measure_on_distinct_cards(tmp_path, monkeypatch, scheduler):
+    """Each spawned worker pins a card of its own: under ``static`` payload
+    k runs on card k, under ``steal`` each worker takes a distinct slot from
+    the queue of card indices.  Two CPU devices stand in for the cards; the
+    store stays byte-identical to the serial loop's."""
+    devices = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    monkeypatch.setattr(executors, "cuda_devices", lambda: devices)
+    spec = SPEC.replace(algorithms=("rs", "ga"), store="json")
+    serial = spec.replace(store_path=str(tmp_path / "serial.json"))
+    base = TuningSession(serial).run_matrix()
+    session = TuningSession(spec.replace(store_path=str(tmp_path / "p.json")))
+    res = session.run_matrix(executor="process", max_workers=2, scheduler=scheduler)
+    assert_same_cells(base, res)
+    assert store_values_bytes(session.spec.store_path) == store_values_bytes(serial.store_path)
+    ran = session.last_unit_devices
+    assert sorted(ran) == sorted(u.key for u in session.last_unit_plan)
+    card_of: dict[str, set] = {}
+    for where in ran.values():
+        card_of.setdefault(where["worker"], set()).add(where["device"])
+    # every worker on exactly one card, no card shared between workers
+    assert all(len(cards) == 1 for cards in card_of.values())
+    cards = [c for cs in card_of.values() for c in cs]
+    assert len(cards) == len(set(cards)) and set(cards) <= {"cpu:0", "cpu:1"}
+    if scheduler == "static":
+        assert card_of == {"payload0": {"cpu:0"}, "payload1": {"cpu:1"}}
+    assert not [f for f in os.listdir(tmp_path) if ".shard" in f]
+
+
 def test_launch_counts_add_exactly_across_threads():
     """The launch counters add under a lock: threads on several cards never
     lose a count (a short switch interval makes a lost update likely)."""

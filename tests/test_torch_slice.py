@@ -177,8 +177,8 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
         assert json.load(f) == raw           # loading never rewrites the file
 
 
-#: modules the matrix slice and the stores-and-analysis slice added; the
-#: walk below must reach each of them
+#: modules the matrix, stores-and-analysis and telemetry-and-serving slices
+#: added; the walk below must reach each of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
@@ -188,6 +188,13 @@ MATRIX_MODULES = (
     "repro_torch.core.stats", "repro_torch.analysis", "repro_torch.analysis.records",
     "repro_torch.analysis.stats", "repro_torch.analysis.claims",
     "repro_torch.analysis.figures", "repro_torch.analysis.report",
+    "repro_torch.telemetry", "repro_torch.telemetry.events",
+    "repro_torch.telemetry.tracer", "repro_torch.telemetry.merge",
+    "repro_torch.telemetry.summarize", "repro_torch.telemetry.export",
+    "repro_torch.telemetry.progress", "repro_torch.telemetry.assert_counters",
+    "repro_torch.telemetry.__main__", "repro_torch.serving", "repro_torch.serving.winners",
+    "repro_torch.serving.queue", "repro_torch.serving.api", "repro_torch.serving.fleet",
+    "repro_torch.serving.http", "repro_torch.serving.__main__", "repro_torch.serve",
 )
 
 
