@@ -336,7 +336,11 @@ def test_device_executor_identical_store(tmp_path, two_cpu_devices, scheduler):
     totals.pop("scheduler.steals", None)
     ref_totals.pop("scheduler.steals", None)
     assert totals == ref_totals
-    assert {d["device"] for d in session.last_unit_devices.values()} == {"cpu:0", "cpu:1"}
+    cards = {d["device"] for d in session.last_unit_devices.values()}
+    # static hands each card a payload; under steal a card's thread may
+    # find the queue empty
+    assert cards == {"cpu:0", "cpu:1"} if scheduler == "static" else cards <= {"cpu:0", "cpu:1"}
+    assert set(session.last_unit_devices) == {u.key for u in session.last_unit_plan}
 
 
 # --------------------------------------------------- shard merge + recovery
