@@ -69,6 +69,13 @@ Phases (any failure exits non-zero and prints no result line):
    default config; ``serve`` in a process of its own answers ``GET
    /best_config`` for harris with the query's JSON; the trace's serving
    counters match the queries made;
+4f. the static gate: ``python -m repro_torch.staticcheck src/repro_torch
+   --preflight-paper`` in a process of its own on the card's host (the
+   registry checks import the real ``cuda`` backend there and must build
+   and launch nothing), which must exit 0; then, in this process, the
+   pre-flight of the three ``cuda`` specs phase 4c ran at 8192x8192 (no
+   error finding; each kernel's SPEC001 constrained fraction printed);
+   no kernel may launch and the kernel library must stay the same file;
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -82,6 +89,7 @@ Phases (any failure exits non-zero and prints no result line):
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -646,10 +654,11 @@ def run_matrix_phase(tmp: str) -> dict:
     require(session.measurement is None, "matrix resume ran a unit")
     require(same_cells(cold, resumed), "matrix resume: cells differ from the cold run")
 
+    specs = {"harris": spec}
     for kernel in ("add", "mandelbrot"):
-        _, _, n, stats[kernel] = matrix_cold(kernel, tmp)
+        specs[kernel], _, n, stats[kernel] = matrix_cold(kernel, tmp)
         counted[kernel] += n
-    return {"launches": counted, "stats": stats, "harris": (spec, cold)}
+    return {"launches": counted, "stats": stats, "harris": (spec, cold), "specs": specs}
 
 
 def sqlite_values(path: str) -> str:
@@ -914,6 +923,71 @@ def run_serving_phase(tmp: str, harris_spec) -> dict:
             "winner": cfg, "hit_serve_ms": hit["serve_ms"], "ms_default_winner": ms}
 
 
+def file_digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+#: ``path:line:col: RULE[ [severity]] message``, as the gate prints a finding
+FINDING_LINE = re.compile(r"^.*:\d+:\d+: [A-Z]+\d* (?:\[(warning|info)\] )?")
+
+
+def run_staticcheck_phase(specs: dict) -> None:
+    """Phase 4f: the port's static gate on the card's host.  The gate's CLI
+    over the port's tree, with its registries and the paper matrix's
+    pre-flight, in a process of its own; then the pre-flight of phase 4c's
+    ``cuda`` specs here.  Neither may launch a kernel or rebuild the
+    library."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels._build import library
+    from repro_torch.staticcheck import preflight_spec
+    from repro_torch.staticcheck.findings import format_finding
+    from repro_torch.staticcheck.runner import iter_py_files
+    from repro_torch.staticcheck.spec_rules import _resolve_space, constrained_fraction
+
+    lib = library()
+    lib_before = file_digest(lib.path)
+    for c in LAUNCHES.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    port = os.path.join(ROOT, "src", "repro_torch")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.staticcheck", port, "--preflight-paper"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  {line}")
+    require(cli.returncode == 0,
+            f"staticcheck CLI: exit {cli.returncode}: {cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+    severities = {"error": 0, "warning": 0, "info": 0}
+    for line in lines[:-1]:
+        m = FINDING_LINE.match(line)
+        require(m is not None, f"staticcheck CLI: unparsed line {line!r}")
+        severities[m.group(1) or "error"] += 1
+    require(severities["error"] == 0, f"staticcheck CLI: {severities}")
+
+    fractions = {}
+    for kernel, spec in specs.items():
+        findings = preflight_spec(spec, where=f"<cuda:{kernel}/8192x8192>")
+        for f in findings:
+            print(f"  {format_finding(f)}")
+        require(not [f for f in findings if f.severity == "error"],
+                f"staticcheck: the {kernel} spec of phase 4c has error findings")
+        fractions[kernel] = constrained_fraction(_resolve_space(spec))
+    wall = time.perf_counter() - t0
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    lib_after = file_digest(lib.path)
+    n_files = len(iter_py_files([port]))
+    print(f"staticcheck: wall_s={wall:.3f} cli_s={cli_s:.3f} files={n_files} "
+          f"findings={severities} spec001_fraction={fractions} launches={got} "
+          f"library={os.path.basename(lib.path)} sha256={lib_after[:16]} "
+          f"unchanged={lib_after == lib_before and library() is lib}")
+    require(all(n == 0 for n in got.values()), f"staticcheck launched {got}")
+    require(lib_after == lib_before and library() is lib, "staticcheck: the library changed")
+
+
 def time_add_paths(a, b, winner: dict) -> dict:
     """add's vector and scalar paths on the same aligned inputs, each launched
     through its C entry point (uncounted: these launches are not the main
@@ -1088,6 +1162,9 @@ def main() -> int:
         t0 = time.perf_counter()
         serving = run_serving_phase(tmp, matrix["harris"][0])   # 4e.
         phase_s["serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_staticcheck_phase(matrix["specs"])            # 4f.
+    phase_s["staticcheck"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 

@@ -14,6 +14,9 @@ pixels exactly equal, violations within +-4 iterations').  On the card each
 CUDA kernel is held to its plain version: add and mandelbrot exactly (the
 kernels round every operation as the plain versions do), harris within
 1e-5 of its largest value.
+
+``TUNABLE_KERNELS`` maps the kernel names to their public wrappers, as the
+reference's does; the static gate (REG003) holds it to ``KERNEL_BENCHES``.
 """
 
 from .add import ops as _add_ops
@@ -28,6 +31,12 @@ from .mandelbrot import ops as _mandelbrot_ops
 from .mandelbrot.ops import BENCH as _mandelbrot_bench
 from .mandelbrot.ops import mandelbrot
 from .mandelbrot.ref import mandelbrot_ref
+
+TUNABLE_KERNELS = {
+    "add": add,
+    "harris": harris,
+    "mandelbrot": mandelbrot,
+}
 
 #: per-kernel input/resource descriptors consumed by the measurement backend
 KERNEL_BENCHES = {
@@ -49,5 +58,6 @@ __all__ = [
     "harris_ref",
     "mandelbrot",
     "mandelbrot_ref",
+    "TUNABLE_KERNELS",
     "KERNEL_BENCHES",
 ]

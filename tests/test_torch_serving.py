@@ -17,10 +17,11 @@ both can take the same input:
 * the device label: a ``cuda`` winner is keyed by the card's name (``cpu``
   for the plain versions), so it never answers a query for a cost-model
   chip or for the CPU, and a ``cuda`` job's worker raises where there is no
-  card.
+  card;
+* the port's static gate guards the serving layer's pacing knobs out of
+  provenance and its serve-dir plumbing out of identity sinks, as the
+  reference's does.
 
-The reference's ``test_staticcheck_sets_cover_serving_knobs`` has no
-counterpart yet: the static gate over the port is a later slice.
 Tolerance is exact everywhere.
 """
 
@@ -780,3 +781,22 @@ def test_http_serve_command_answers_as_the_query_does(tmp_path, capsys):
         d_.pop("age_s")
         d_.pop("serve_ms", None)
     assert got == want and got["status"] == "hit"
+
+
+# --------------------------------------------------------- staticcheck knobs
+
+
+def test_staticcheck_sets_cover_serving_knobs():
+    """The serving layer's pacing/plumbing knobs are registered with the
+    port's static gate: PROV001 guards fleet pacing out of provenance,
+    OBS001 keeps serve-dir plumbing out of identity sinks — the reference's
+    sets, entry for entry."""
+    from repro.staticcheck.obs import TELEMETRY_TOKENS as REF_TOKENS
+    from repro.staticcheck.prov import SINK_NAMES as REF_SINKS
+    from repro.staticcheck.prov import SPEED_KNOBS as REF_KNOBS
+    from repro_torch.staticcheck.obs import TELEMETRY_TOKENS
+    from repro_torch.staticcheck.prov import SINK_NAMES, SPEED_KNOBS
+
+    assert {"claim_timeout_s", "poll_s", "stall_s"} <= set(SPEED_KNOBS)
+    assert {"serve_dir", "qdir", "queue_dir"} <= set(TELEMETRY_TOKENS)
+    assert (SPEED_KNOBS, TELEMETRY_TOKENS, SINK_NAMES) == (REF_KNOBS, REF_TOKENS, REF_SINKS)

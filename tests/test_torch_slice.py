@@ -177,8 +177,8 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
         assert json.load(f) == raw           # loading never rewrites the file
 
 
-#: modules the matrix, stores-and-analysis and telemetry-and-serving slices
-#: added; the walk below must reach each of them
+#: modules the matrix, stores-and-analysis, telemetry-and-serving and
+#: static-gate slices added; the walk below must reach each of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
@@ -195,6 +195,12 @@ MATRIX_MODULES = (
     "repro_torch.telemetry.__main__", "repro_torch.serving", "repro_torch.serving.winners",
     "repro_torch.serving.queue", "repro_torch.serving.api", "repro_torch.serving.fleet",
     "repro_torch.serving.http", "repro_torch.serving.__main__", "repro_torch.serve",
+    "repro_torch.staticcheck", "repro_torch.staticcheck.catalog",
+    "repro_torch.staticcheck.findings", "repro_torch.staticcheck.lib",
+    "repro_torch.staticcheck.ser", "repro_torch.staticcheck.det",
+    "repro_torch.staticcheck.prov", "repro_torch.staticcheck.obs",
+    "repro_torch.staticcheck.runner", "repro_torch.staticcheck.reg",
+    "repro_torch.staticcheck.spec_rules", "repro_torch.staticcheck.__main__",
 )
 
 

@@ -28,8 +28,8 @@ smoke_ms=$(( ($(date +%s%N) - t0) / 1000000 ))
 (cd "$tree" && PYTHONPATH=src python3 -m repro_torch.cuda_bench.search_cost) \
   >"$out/search_cost.log" 2>&1; cost_rc=$?
 
-echo "== chip_smoke.py exit $smoke in $smoke_ms ms; its tune, matrix, trace, serving and phase lines, its card line and its last line:"
-grep -E '^ *(tune|matrix|trace|serving) |^phase wall' "$out/smoke.log"
+echo "== chip_smoke.py exit $smoke in $smoke_ms ms; its tune, matrix, trace, serving, staticcheck and phase lines, its card line and its last line:"
+grep -E '^ *(tune|matrix|trace|serving) |^staticcheck: wall|^phase wall' "$out/smoke.log"
 grep -F "$(cat "$out/card.txt")" "$out/smoke.log" | tail -n 1
 tail -n 1 "$out/smoke.log"
 echo "== chip_smoke.py alone in an empty directory: exit $alone_rc; last line:"
