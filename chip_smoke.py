@@ -76,6 +76,23 @@ Phases (any failure exits non-zero and prints no result line):
    pre-flight of the three ``cuda`` specs phase 4c ran at 8192x8192 (no
    error finding; each kernel's SPEC001 constrained fraction printed);
    no kernel may launch and the kernel library must stay the same file;
+4g. the model stack (which launches none of the three kernels): reduced
+   yi-34b and granite-34b (MQA) on the card against the port on the CPU from
+   the same weights and batch (forward logits per position, one train
+   step's loss and each leaf's gradient, eight decode steps, within bounds
+   about twice what the card read, far under the CPU tests' bounds against
+   JAX); yi-34b at full width (d_model 7168, 56 heads, 8 KV heads,
+   d_ff 20480, vocab 64000) cut to 2 of its 60 layers, seq 4096, batch 1 of
+   256: ten ``make_train_step`` steps overfitting one batch (per step
+   seconds, tokens/s and loss; finite, the last below the first), the peak
+   memory, the model FLOPs per step and their share of the data sheet's 989
+   TFLOP/s dense bf16, then prefill against 32 decode steps at B=2 (top-1 >=
+   0.99, correlation > 0.99); ``python -m repro_torch.launch.train --arch
+   yi-34b --reduced --steps 20 --batch 8 --seq 256`` in a process of its own
+   (loss falls, ``step_00000020`` written) and again with ``--steps 30``
+   (``resumed_from=20``); a runner crash at step 7 resumed from step 5 to
+   12 under deterministic algorithms, equal to an uninterrupted run (atol
+   1e-7);
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -136,6 +153,22 @@ CARD_TAG = "h100"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F32_UNFUSED_PER_S = 33.5e12
+
+#: phase 4g: yi-34b at full width, cut from 60 layers to 2 and from batch
+#: 256 to 1 at seq 4096; the H100 SXM's dense bf16 peak (NVIDIA data sheet)
+MODEL_LAYERS = 2
+MODEL_STEPS = 10
+PEAK_BF16_PER_S = 989e12
+#: the card against the port on the CPU: bf16 logits per position, median
+#: and max of max|d|/max|ref|; gradients per leaf, ||d|| / ||ref||.  Both
+#: sides run the same torch code and round bf16 alike, differing only in
+#: summation order, so the bounds sit about twice above what an H100 read
+#: (positions up to 9.3e-3, median 0; leaves up to 0.0227), far under the
+#: CPU tests' bounds against JAX (0.15, 0.35), which allow a softmax flip
+#: between frameworks
+MODEL_LOGITS_MEDIAN = 1e-3
+MODEL_LOGITS_MAX = 2e-2
+MODEL_GRAD_REL = 0.05
 
 KERNEL_INFO = {
     "add": ("src/repro_torch/kernels/csrc/add.cu", "src/repro/kernels/add/kernel.py:28"),
@@ -988,6 +1021,265 @@ def run_staticcheck_phase(specs: dict) -> None:
     require(lib_after == lib_before and library() is lib, "staticcheck: the library changed")
 
 
+# ---------------------------------------------------------------- phase 4g
+
+
+def per_position_err(got, ref):
+    """Per position, max over the vocabulary of |got - ref| / max|ref|."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return (got - ref).abs().amax(-1).flatten() / ref.abs().max()
+
+
+def require_logits(err, what: str) -> dict:
+    """The card-against-CPU bound on bf16 logits: most positions equal, none
+    past twice the largest difference an H100 read."""
+    out = {"max": err.max().item(), "median": err.median().item(), "n": err.numel()}
+    require(out["median"] <= MODEL_LOGITS_MEDIAN and out["max"] <= MODEL_LOGITS_MAX,
+            f"{what}: per-position max|d|/max|ref| {out}")
+    return out
+
+
+def model_card_against_cpu(name: str) -> dict:
+    """4g a: one reduced config's forward logits, one train step's loss and
+    each leaf's gradient, and eight decode steps, on the card against the
+    port on the CPU, from the same weights and batch."""
+    import torch
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import TrainSettings, init_train_state, make_loss_fn, make_train_step
+    from repro_torch.tree import tree_from_paths, tree_map, tree_paths
+
+    cfg = REGISTRY[name].reduced()
+    model = build_model(cfg)
+    on_cpu = init_params(model.spec(), torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda t: t.to("cuda"), on_cpu)
+    batch_cpu = make_train_batch(DataConfig(seed=0), cfg, 64, 2, 0, device="cpu")
+    batch = tree_map(lambda t: t.to("cuda"), batch_cpu)
+    out = {}
+    with torch.no_grad():
+        ref, _ = model.forward(on_cpu, batch_cpu["tokens"])
+        got, _ = model.forward(on_card, batch["tokens"])
+    out["forward"] = require_logits(per_position_err(got, ref), f"{name} forward")
+
+    settings = TrainSettings(remat="none")
+    step = make_train_step(model, settings)
+    ref_loss = float(step(init_train_state(model, on_cpu), batch_cpu)[1]["loss"])
+    loss = float(step(init_train_state(model, on_card), batch)[1]["loss"])
+    out["loss"] = {"card": loss, "cpu": ref_loss, "rel": abs(loss - ref_loss) / abs(ref_loss)}
+    require(out["loss"]["rel"] <= 1e-3, f"{name} train step loss {out['loss']}")
+
+    def grads(params, b):
+        flat = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params).items()}
+        total, _ = make_loss_fn(model, settings)(tree_from_paths(flat), b)
+        return dict(zip(flat, torch.autograd.grad(total, list(flat.values())), strict=True))
+
+    g_cpu, g_card = grads(on_cpu, batch_cpu), grads(on_card, batch)
+    out["grads"] = {k: ((g_card[k].cpu() - g).norm() / g.norm()).item() for k, g in g_cpu.items()}
+    require(max(out["grads"].values()) <= MODEL_GRAD_REL,
+            f"{name} gradients ||d||/||ref|| {out['grads']}")
+
+    errs = []
+    with torch.no_grad():
+        c_cpu = model.init_cache(2, 16, device="cpu")
+        c_card = model.init_cache(2, 16, device="cuda")
+        for t in range(8):
+            tok = batch_cpu["tokens"][:, t:t + 1]
+            ref, c_cpu = model.decode_step(on_cpu, c_cpu, torch.full((2,), t), tok)
+            got, c_card = model.decode_step(on_card, c_card, torch.full((2,), t, device="cuda"),
+                                            tok.to("cuda"))
+            errs.append(per_position_err(got, ref))
+    out["decode"] = require_logits(torch.cat(errs), f"{name} decode")
+    print(f"model card-vs-cpu {name} reduced: forward {out['forward']} loss {out['loss']} "
+          f"grads max {max(out['grads'].values()):.4g} {out['grads']} decode {out['decode']}")
+    return out
+
+
+def model_flops(cfg, seq: int, tokens: int) -> float:
+    """Model FLOPs of one train step: 6 * matmul params * tokens, plus the
+    attention's two products over the full score matrix (the reference
+    computes all of it, masked): 12 * L * S * H * hd per token."""
+    c = cfg
+    per_layer = (2 * c.d_model * c.n_heads * c.head_dim          # wq, wo
+                 + 2 * c.d_model * c.n_kv_heads * c.head_dim     # wk, wv
+                 + 3 * c.d_model * c.d_ff)                       # w_gate, w_up, w_down
+    n_matmul = c.n_layers * per_layer + c.d_model * c.vocab
+    return 6 * n_matmul * tokens + 12 * c.n_layers * seq * c.n_heads * c.head_dim * tokens
+
+
+def model_full_width() -> dict:
+    """4g b: yi-34b at full width, 2 of its 60 layers, seq 4096, batch 1:
+    ten train steps overfitting one batch, then prefill against decode."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import REGISTRY, SHAPES
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params, param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainSettings, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(REGISTRY["yi-34b"], n_layers=MODEL_LAYERS)
+    seq, batch_size = SHAPES["train_4k"].seq_len, 1
+    model = build_model(cfg)
+    n_params = param_count(model.spec())
+    batch = make_train_batch(DataConfig(seed=0), cfg, seq, batch_size, 0, device="cuda")
+    tokens = seq * batch_size
+    out = {"params": n_params, "steps": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, init_params(
+        model.spec(), torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    torch.cuda.synchronize()
+    out["init_s"] = init_s = time.perf_counter() - t0
+    # remat "none" fits on an 80 GB card (about 61 GB at this size), fp32 scores and all
+    step = make_train_step(model, TrainSettings(
+        remat="none", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1)))
+    for i in range(MODEL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["steps"].append({"s": dt, "tok_s": tokens / dt, "loss": loss})
+        print(f"model full-width yi-34b L={cfg.n_layers} S={seq} B={batch_size} remat=none "
+              f"step {i + 1}: s={dt:.4f} tok/s={tokens / dt:.1f} loss={loss:.6f}")
+    losses = [s["loss"] for s in out["steps"]]
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"full width: losses {losses}")
+    steady = sorted(s["s"] for s in out["steps"][1:])
+    out["step_s_median"] = steady[len(steady) // 2]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["flops_per_step"] = model_flops(cfg, seq, tokens)
+    out["flop_share_of_peak"] = out["flops_per_step"] / out["step_s_median"] / PEAK_BF16_PER_S
+    print(f"model full-width: params={n_params} init_s={init_s:.3f} remat=none "
+          f"step_s_median(steps 2-{MODEL_STEPS})={out['step_s_median']:.4f} "
+          f"tok/s={tokens / out['step_s_median']:.1f} peak_mem_GB={out['peak_gb']:.2f} "
+          f"(of {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}) "
+          f"model_flops_per_step={out['flops_per_step']:.4e} share of the data sheet's "
+          f"989 TFLOP/s dense bf16 (H100 SXM)={100 * out['flop_share_of_peak']:.2f} %")
+
+    # prefill against decode on the trained weights: B=2, 32 tokens
+    params = state["params"]
+    state = None
+    toks = make_train_batch(DataConfig(seed=0), cfg, 32, 2, 1, device="cuda")["tokens"]
+    with torch.no_grad():
+        full, _ = model.forward(params, toks)
+        cache = model.init_cache(2, 64, device="cuda")
+        for t in range(32):
+            last, cache = model.decode_step(params, cache, torch.full((2,), t, device="cuda"),
+                                            toks[:, t:t + 1])
+    got, want = last[:, 0].float().cpu(), full[:, -1].float().cpu()
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1].item()
+    out["prefill_decode"] = {"top1": top1, "corr": corr}
+    print(f"model prefill-vs-decode yi-34b full width B=2 32 tokens: top1={top1} corr={corr:.6f}")
+    require(top1 >= 0.99 and corr > 0.99, f"prefill vs decode: {out['prefill_decode']}")
+    return out
+
+
+def train_cli(ckpt: str, steps: int) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-34b", "--reduced",
+         "--steps", str(steps), "--batch", "8", "--seq", "256", "--ckpt", ckpt],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    wall = time.perf_counter() - t0
+    for line in cli.stdout.strip().splitlines():
+        print(f"  {line}")
+    require(cli.returncode == 0,
+            f"launch.train --steps {steps}: exit {cli.returncode}: {cli.stderr[-3000:]}")
+    return cli.stdout, wall
+
+
+def model_cli(tmp: str) -> dict:
+    """4g c: ``python -m repro_torch.launch.train`` on the card, in a
+    process of its own, then resumed from its checkpoint."""
+    ckpt = os.path.join(tmp, "train_cli")
+    first, first_s = train_cli(ckpt, 20)
+    lines = [ln for ln in first.splitlines() if ln.startswith("[train]")]
+    m = re.search(r"loss ([\d.]+) -> ([\d.]+)", first)
+    require(len(lines) == 3 and "resumed_from=None" in lines[1] and m is not None
+            and float(m.group(2)) < float(m.group(1)), f"launch.train: {lines}")
+    require(os.path.isdir(os.path.join(ckpt, "step_00000020")), "launch.train: no step_00000020")
+    again, again_s = train_cli(ckpt, 30)
+    require("resumed_from=20" in again, f"launch.train --steps 30: {again[-500:]}")
+    out = {"first_s": first_s, "resumed_s": again_s,
+           "loss": [float(m.group(1)), float(m.group(2))]}
+    print(f"model cli: {out}")
+    return out
+
+
+def model_crash_resume(tmp: str) -> dict:
+    """4g d: an injected failure at step 7, resumed from the step-5
+    checkpoint to step 12, equal to an uninterrupted 12-step run under
+    deterministic algorithms (the embedding's backward is a scatter-add and
+    cuBLAS may split K: neither repeats bit for bit otherwise)."""
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.runtime import InjectedFailure, RunnerConfig, TrainingRunner
+    from repro_torch.train import TrainSettings, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = REGISTRY["yi-34b"].reduced()
+    model = build_model(cfg)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state0 = init_train_state(model, init_params(
+            model.spec(), torch.Generator(device="cuda").manual_seed(0), "cuda"))
+        step_fn = make_train_step(model, TrainSettings(remat="none"))
+        make_batch = lambda s: make_train_batch(DataConfig(seed=0), cfg, 64, 2, s, device="cuda")
+        ref, _ = TrainingRunner(RunnerConfig(ckpt_dir=os.path.join(tmp, "uninterrupted"),
+                                             ckpt_every=5), step_fn, make_batch).run(state0, 12)
+        d = os.path.join(tmp, "crashed")
+        crashed = False
+        try:
+            TrainingRunner(RunnerConfig(ckpt_dir=d, ckpt_every=5, fail_at_step=7),
+                           step_fn, make_batch).run(state0, 12)
+        except InjectedFailure:
+            crashed = True
+        require(crashed and latest_step(d) == 5, f"crash: raised={crashed} at {latest_step(d)}")
+        resumed, report = TrainingRunner(RunnerConfig(ckpt_dir=d, ckpt_every=5),
+                                         step_fn, make_batch).run(state0, 12)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(ref["params"]), tree_leaves(resumed["params"]), strict=True))
+    out = {"restored_from": report.restored_from, "steps_run": report.steps_run,
+           "max_abs_diff": diff}
+    print(f"model crash-resume yi-34b reduced, deterministic: {out}")
+    require(report.restored_from == 5 and report.steps_run == 7 and diff <= 1e-7,
+            f"crash-resume: {out}")
+    return out
+
+
+def run_model_phase(tmp: str) -> dict:
+    """Phase 4g: the model stack, which launches none of the three CUDA
+    kernels."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    for c in LAUNCHES.values():
+        c.n = 0
+    out = {name: model_card_against_cpu(name) for name in ("yi-34b", "granite-34b")}
+    out["full_width"] = model_full_width()
+    torch.cuda.empty_cache()
+    out["cli"] = model_cli(tmp)
+    out["crash_resume"] = model_crash_resume(tmp)
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    require(all(n == 0 for n in got.values()), f"the model stack launched {got}")
+    return out
+
+
 def time_add_paths(a, b, winner: dict) -> dict:
     """add's vector and scalar paths on the same aligned inputs, each launched
     through its C entry point (uncounted: these launches are not the main
@@ -1095,6 +1387,9 @@ def time_kernels(winners: dict) -> dict:
 
 
 def main() -> int:
+    # phase 4g's crash-resume check runs with deterministic algorithms, which
+    # need cuBLAS's workspace fixed before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1165,6 +1460,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_staticcheck_phase(matrix["specs"])            # 4f.
     phase_s["staticcheck"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_model_phase(tmp)                          # 4g.
+        phase_s["model"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 

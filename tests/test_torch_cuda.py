@@ -6,9 +6,16 @@ the GPU host with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
 import math
+import os
 
 import pytest
 import torch
+
+#: cuBLAS takes its workspace setting when CUDA starts, so deterministic
+#: crash-resume needs it in the environment before any test touches the card
+CUBLAS_SET_BEFORE_CUDA = (not torch.cuda.is_initialized()
+                          or "CUBLAS_WORKSPACE_CONFIG" in os.environ)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from repro_torch import TuningSession, TuningSpec
 from repro_torch.kernels import (
@@ -212,3 +219,100 @@ def test_cuda_fleet_fills_a_miss_on_the_card(card, tmp_path):
     assert hit.status == "hit" and hit.matched_key == f"mandelbrot|x=1000|y=1001|{name}"
     assert torch.equal(mandelbrot(1000, 1001, hit.config, device=card),
                        mandelbrot_ref(1000, 1001, device=card))
+
+
+# ---------------------------------------------------------------- the model stack
+#: the card against the port on the CPU, which run the same torch code and
+#: round bf16 alike: about twice what an H100 read (``chip_smoke.py`` phase
+#: 4g a), far under the CPU tests' bounds against JAX (0.15, 0.35)
+LOGITS_MEDIAN, LOGITS_MAX, GRAD_REL = 1e-3, 2e-2, 0.05
+
+
+def logits_err(got, ref):
+    err = (got.float().cpu() - ref.float()).abs().amax(-1).flatten() / ref.float().abs().max()
+    return err.median().item(), err.max().item()
+
+
+def test_cuda_model_matches_the_cpu(card):
+    """Reduced yi-34b on the card against the port on the CPU, from the same
+    weights and batch: forward logits, one step's loss and gradients, and
+    eight decode steps."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import TrainSettings, make_loss_fn
+    from repro_torch.tree import tree_from_paths, tree_map, tree_paths
+
+    model = build_model(REGISTRY["yi-34b"].reduced())
+    on_cpu = init_params(model.spec(), torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda t: t.to(card), on_cpu)
+    batch_cpu = make_train_batch(DataConfig(seed=0), model.cfg, 64, 2, 0, device="cpu")
+    batch = tree_map(lambda t: t.to(card), batch_cpu)
+    with torch.no_grad():
+        median, worst = logits_err(model.forward(on_card, batch["tokens"])[0],
+                                   model.forward(on_cpu, batch_cpu["tokens"])[0])
+    assert median <= LOGITS_MEDIAN and worst <= LOGITS_MAX
+
+    def loss_and_grads(params, b):
+        flat = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params).items()}
+        total, (loss, _) = make_loss_fn(model, TrainSettings(remat="none"))(
+            tree_from_paths(flat), b)
+        return float(loss), dict(zip(flat, torch.autograd.grad(total, list(flat.values())),
+                                     strict=True))
+
+    ref_loss, ref_g = loss_and_grads(on_cpu, batch_cpu)
+    loss, g = loss_and_grads(on_card, batch)
+    assert loss == pytest.approx(ref_loss, rel=1e-3)
+    for key, ref in ref_g.items():
+        assert g[key].device.type == "cuda"
+        assert ((g[key].cpu() - ref).norm() / ref.norm()).item() <= GRAD_REL, key
+
+    errs = []
+    with torch.no_grad():
+        c_cpu = model.init_cache(2, 16, device="cpu")
+        c_card = model.init_cache(2, 16, device=card)
+        for t in range(8):
+            tok = batch_cpu["tokens"][:, t:t + 1]
+            ref, c_cpu = model.decode_step(on_cpu, c_cpu, torch.full((2,), t), tok)
+            got, c_card = model.decode_step(on_card, c_card, torch.full((2,), t, device=card),
+                                            tok.to(card))
+            errs.append((got.float().cpu() - ref.float()).abs().amax(-1).flatten()
+                        / ref.float().abs().max())
+    errs = torch.cat(errs)
+    assert errs.median().item() <= LOGITS_MEDIAN and errs.max().item() <= LOGITS_MAX
+
+
+def test_cuda_crash_resume_is_deterministic(card, tmp_path):
+    """An injected failure at step 7, resumed from the step-5 checkpoint to
+    step 12, lands on the weights of an uninterrupted run (atol 1e-7) under
+    deterministic algorithms."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.runtime import InjectedFailure, RunnerConfig, TrainingRunner
+    from repro_torch.train import TrainSettings, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    if not CUBLAS_SET_BEFORE_CUDA:
+        pytest.skip("CUDA started before CUBLAS_WORKSPACE_CONFIG was set")
+    model = build_model(REGISTRY["yi-34b"].reduced())
+    step_fn = make_train_step(model, TrainSettings(remat="none"))
+    make_batch = lambda s: make_train_batch(DataConfig(seed=0), model.cfg, 64, 2, s, device=card)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state0 = init_train_state(model, init_params(
+            model.spec(), torch.Generator(device=card).manual_seed(0), card))
+        ref, _ = TrainingRunner(RunnerConfig(ckpt_dir=str(tmp_path / "a"), ckpt_every=5),
+                                step_fn, make_batch).run(state0, 12)
+        with pytest.raises(InjectedFailure):
+            TrainingRunner(RunnerConfig(ckpt_dir=str(tmp_path / "b"), ckpt_every=5,
+                                        fail_at_step=7), step_fn, make_batch).run(state0, 12)
+        resumed, report = TrainingRunner(RunnerConfig(ckpt_dir=str(tmp_path / "b"),
+                                                      ckpt_every=5),
+                                         step_fn, make_batch).run(state0, 12)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert report.restored_from == 5 and report.steps_run == 7
+    for a, b in zip(tree_leaves(ref["params"]), tree_leaves(resumed["params"]), strict=True):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)

@@ -177,8 +177,9 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
         assert json.load(f) == raw           # loading never rewrites the file
 
 
-#: modules the matrix, stores-and-analysis, telemetry-and-serving and
-#: static-gate slices added; the walk below must reach each of them
+#: modules the matrix, stores-and-analysis, telemetry-and-serving,
+#: static-gate and model-stack slices added; the walk below must reach each
+#: of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
@@ -201,6 +202,18 @@ MATRIX_MODULES = (
     "repro_torch.staticcheck.prov", "repro_torch.staticcheck.obs",
     "repro_torch.staticcheck.runner", "repro_torch.staticcheck.reg",
     "repro_torch.staticcheck.spec_rules", "repro_torch.staticcheck.__main__",
+    "repro_torch.tree", "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.yi_34b", "repro_torch.configs.granite_34b",
+    "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.deepseek_coder_33b",
+    "repro_torch.configs.whisper_medium", "repro_torch.configs.zamba2_1_2b",
+    "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_236b",
+    "repro_torch.configs.mamba2_130m", "repro_torch.configs.chameleon_34b",
+    "repro_torch.models", "repro_torch.models.param", "repro_torch.models.layers",
+    "repro_torch.models.decoder", "repro_torch.models.registry", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.train", "repro_torch.train.step",
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
+    "repro_torch.runtime.fault_tolerance", "repro_torch.launch", "repro_torch.launch.train",
 )
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env bash
 # Checks the PyTorch/CUDA port on a card from a copy of the committed files.
 #
-#   git add -A && mkdir -p results/archive &&
-#     git archive "$(git write-tree)" | tar -x -C results/archive
-#   bash tools/chip_check.sh results/archive
+#   git add -A && mkdir -p results/.archive &&
+#     git archive "$(git write-tree)" | tar -x -C results/.archive
+#   bash tools/chip_check.sh results/.archive
 #
 # In that copy it runs chip_smoke.py, then chip_smoke.py alone in an empty
 # directory (it must exit non-zero and print no result), the card-only tests
@@ -28,8 +28,8 @@ smoke_ms=$(( ($(date +%s%N) - t0) / 1000000 ))
 (cd "$tree" && PYTHONPATH=src python3 -m repro_torch.cuda_bench.search_cost) \
   >"$out/search_cost.log" 2>&1; cost_rc=$?
 
-echo "== chip_smoke.py exit $smoke in $smoke_ms ms; its tune, matrix, trace, serving, staticcheck and phase lines, its card line and its last line:"
-grep -E '^ *(tune|matrix|trace|serving) |^staticcheck: wall|^phase wall' "$out/smoke.log"
+echo "== chip_smoke.py exit $smoke in $smoke_ms ms; its tune, matrix, trace, serving, model, staticcheck and phase lines, its card line and its last line:"
+grep -E '^ *(tune|matrix|trace|serving|model) |^staticcheck: wall|^phase wall' "$out/smoke.log"
 grep -F "$(cat "$out/card.txt")" "$out/smoke.log" | tail -n 1
 tail -n 1 "$out/smoke.log"
 echo "== chip_smoke.py alone in an empty directory: exit $alone_rc; last line:"
