@@ -44,8 +44,9 @@ class CudaWorkload:
         seed = stable_seed("pallas_inputs", self.name, self.x, self.y, self.input_seed)
         return tuple(self.bench.make_inputs(self.x, self.y, seed))
 
-    def materialize(self, device="cpu") -> tuple[torch.Tensor, ...]:
-        """The inputs as tensors on ``device``."""
+    def materialize(self, device) -> tuple[torch.Tensor, ...]:
+        """The inputs as tensors on ``device`` (always named: a caller who
+        forgets it must not land on the CPU without a word)."""
         return tuple(torch.from_numpy(a).to(device) for a in self.arrays())
 
     def run(self, inputs: tuple, cfg: Config, device):

@@ -5,11 +5,12 @@ The autotuner's state is its input problems and its measurements.
 tensors byte for byte, and :func:`load_reference_store` opens a JSON
 measurement store the reference wrote (formats 1-3: values, ``inf``
 penalties, penalty reasons and serving winners).  The model stack's state is
-a nested dict of arrays: :func:`params_from_numpy` / :func:`state_from_numpy`
-take the reference's parameter or train-state tree as numpy arrays
+a nested dict of arrays: :func:`params_from_numpy` takes the reference's
+parameter or train-state tree as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, ...)``) into the port's tensors with
-identical bytes, and :func:`params_to_numpy` goes back.  All of them read
-files and arrays only; none imports the reference.
+identical bytes, and :func:`params_to_numpy` goes back.  Every conversion
+to tensors names its device.  All of them read files and arrays only; none
+imports the reference.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def inputs_from_numpy(arrays, device="cpu") -> tuple[torch.Tensor, ...]:
+def inputs_from_numpy(arrays, device) -> tuple[torch.Tensor, ...]:
     """Numpy arrays (float32, or the ``ml_dtypes`` bfloat16 JAX hands out)
     as contiguous tensors on ``device``, with identical bytes."""
     return tuple(_tensor(a, device) for a in arrays)
@@ -43,13 +44,10 @@ def inputs_from_numpy(arrays, device="cpu") -> tuple[torch.Tensor, ...]:
 
 def params_from_numpy(tree, device) -> dict:
     """The reference's parameter tree (nested dicts of numpy arrays) as the
-    port's on ``device``, leaf for leaf, with identical bytes and shapes."""
+    port's on ``device``, leaf for leaf, with identical bytes and shapes.
+    Its train state (``{"params", "opt": {"m", "v", "step"}}``) converts the
+    same way; ``opt/step`` stays an int32 scalar."""
     return tree_map(lambda a: _tensor(a, device), tree)
-
-
-#: the reference's train state (``{"params", "opt": {"m", "v", "step"}}``)
-#: converts the same way; ``opt/step`` stays an int32 scalar
-state_from_numpy = params_from_numpy
 
 
 def params_to_numpy(tree) -> dict:

@@ -10,7 +10,7 @@ is none; the CPU is used only when asked for (``--device cpu``)::
         --reduced --steps 20 --batch 8 --seq 256 --ckpt /tmp/yi_ckpt
 
 One card: ``--model-parallel`` other than 1 needs ``sharding/`` (ROADMAP
-item 6b).
+item 6c).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs sharding/ and more than one card (ROADMAP item 6b)")
+            "--model-parallel > 1 needs sharding/ and more than one card (ROADMAP item 6c)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")

@@ -1,6 +1,9 @@
 from .decoder import DecoderLM
+from .encdec import EncDecLM
+from .hybrid import HybridLM
 from .param import P, abstract_params, init_params, param_axes, param_count
 from .registry import build_model
+from .ssm import SSMLM
 
 __all__ = [
     "P",
@@ -10,4 +13,7 @@ __all__ = [
     "param_count",
     "build_model",
     "DecoderLM",
+    "EncDecLM",
+    "HybridLM",
+    "SSMLM",
 ]

@@ -1,5 +1,5 @@
-"""Decoder-only LM (a port of ``repro.models.decoder``) for the dense and
-vlm families.
+"""Decoder-only LM (a port of ``repro.models.decoder``) for the dense, moe,
+mla_moe and vlm families.
 
 Per-layer parameters are stacked on a leading ``layers`` dim, as in the
 reference, which scans a block over them.  Here each stacked leaf is
@@ -10,11 +10,12 @@ reference, which scans a block over them.  Here each stacked leaf is
 Early-fusion VLM (chameleon) is this same class: its VQ image tokens are
 ordinary vocabulary entries (the tokenizer frontend is a stub).
 
-``spec()`` also describes the MoE and MLA leaves (olmoe, deepseek-v2), so a
-full-size spec of those families can be counted; ``forward`` and
-``decode_step`` on them raise ``NotImplementedError`` (ROADMAP item 6b).
-Without a mesh the reference's sharding constraints are identities; the
-port has none until 6b.
+MoE layers (olmoe, deepseek-v2) route through ``moe.moe_forward`` with one
+dispatch group (``MoEDims.groups`` is set only by the reference's dry-run
+tool, ROADMAP item 6c); ``forward`` returns the mean of the layers' aux
+losses.  MLA layers (deepseek-v2) attend through ``mla.mla_prefill`` and
+decode against a latent cache ``{c_kv, k_rope}``.  Without a mesh the
+reference's sharding constraints are identities; the port has none (6c).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from .layers import (
     rms_norm,
     swiglu,
 )
+from .mla import MLADims, mla_decode, mla_prefill
+from .moe import MoEDims, moe_forward
 from .param import P
 
 #: the weight products (``x @ w``): what ``dots`` keeps, as JAX's
@@ -160,13 +163,13 @@ class DecoderLM:
             spec["lm_head"] = P((D, V), ("embed", "vocab"))
         return spec
 
-    def _require_dense(self) -> None:
-        if self.cfg.moe or self.cfg.mla:
-            raise NotImplementedError(
-                f"{self.cfg.name}: MoE and MLA blocks are not ported yet (ROADMAP item 6b)")
-
     def _head(self, params: dict) -> torch.Tensor:
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+    def _mla_dims(self) -> MLADims:
+        m = self.cfg.mla
+        return MLADims(n_heads=self.cfg.n_heads, q_lora=m.q_lora, kv_lora=m.kv_lora,
+                       d_nope=m.d_nope, d_rope=m.d_rope, d_v=m.d_v)
 
     # ------------------------------------------------------------- blocks
     def _qkv(self, lp: dict, x, positions):
@@ -176,16 +179,37 @@ class DecoderLM:
         k = apply_rope(_proj_in(h, lp["wk"]), positions, c.rope_theta)
         return q, k, _proj_in(h, lp["wv"])
 
+    def _attn_block(self, lp: dict, x, positions):
+        c = self.cfg
+        if c.mla:
+            out, _ = mla_prefill(rms_norm(x, lp["attn_norm"]), lp, self._mla_dims(),
+                                 positions, c.rope_theta)
+            return out
+        q, k, v = self._qkv(lp, x, positions)
+        return _proj_out(attention(q, k, v, causal=True), lp["wo"])
+
     def _mlp_block(self, lp: dict, x):
+        """(out, aux): aux is the MoE load-balance loss, 0 for a dense MLP."""
+        c = self.cfg
         h = rms_norm(x, lp["mlp_norm"])
-        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        if c.moe:
+            dims = MoEDims(
+                n_experts=c.moe.n_experts,
+                top_k=c.moe.top_k,
+                d_model=c.d_model,
+                d_ff=c.moe.d_ff_expert,
+                n_shared=c.moe.n_shared,
+                capacity_factor=c.moe.capacity_factor,
+            )
+            return moe_forward(h, lp, dims)
+        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), torch.zeros((), device=x.device)
 
     # ------------------------------------------------------------- forward
     def forward(
         self, params: dict, tokens: torch.Tensor, remat: str = "none"
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (logits (B, S, V) bf16, aux_loss fp32 scalar)."""
-        self._require_dense()
+        """tokens (B, S) -> (logits (B, S, V) bf16, aux_loss fp32 scalar:
+        the mean over layers)."""
         b, s = tokens.shape
         x = embed(tokens, params["embed"])
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -193,15 +217,17 @@ class DecoderLM:
 
         def block(x, *leaves):
             lp = dict(zip(names, leaves, strict=True))
-            q, k, v = self._qkv(lp, x, positions)
-            x = x + _proj_out(attention(q, k, v, causal=True), lp["wo"])
-            return x + self._mlp_block(lp, x)
+            x = x + self._attn_block(lp, x, positions)
+            mlp_out, aux = self._mlp_block(lp, x)
+            return x + mlp_out, aux
 
         block = _maybe_remat(block, remat)
+        auxs = []
         for lp in _unstack(params["layers"]):
-            x = block(x, *(lp[n] for n in names))
+            x, aux = block(x, *(lp[n] for n in names))
+            auxs.append(aux)
         x = rms_norm(x, params["final_norm"])
-        return lm_logits(x, self._head(params)), torch.zeros((), device=x.device)
+        return lm_logits(x, self._head(params)), torch.stack(auxs).mean()
 
     # ------------------------------------------------------------- decode
     def cache_axes(self) -> dict:
@@ -216,9 +242,17 @@ class DecoderLM:
         }
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
-        self._require_dense()
         c = self.cfg
-        shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        L = c.n_layers
+        if c.mla:
+            m = c.mla
+            return {
+                "c_kv": torch.zeros((L, batch, max_len, m.kv_lora), dtype=COMPUTE_DTYPE,
+                                    device=device),
+                "k_rope": torch.zeros((L, batch, max_len, m.d_rope), dtype=COMPUTE_DTYPE,
+                                      device=device),
+            }
+        shape = (L, batch, max_len, c.n_kv_heads, c.head_dim)
         return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
                 "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
 
@@ -230,24 +264,31 @@ class DecoderLM:
         tokens: torch.Tensor,        # (B, 1)
     ):
         """One decode step; returns (logits (B, 1, V), new_cache)."""
-        self._require_dense()
+        c = self.cfg
         x = embed(tokens, params["embed"])
         positions = cache_len[:, None]
-        s_max = cache["k"].shape[2]
+        names = sorted(cache)
+        s_max = cache[names[0]].shape[2]
         # the slot is written by the reference's one-hot add, which equals an
         # indexed write only where the slot still holds zeros
         oh = F.one_hot(cache_len.long(), s_max)[:, :, None, None].to(COMPUTE_DTYPE)
-        ks, vs = [], []
-        for lp, k_l, v_l in zip(_unstack(params["layers"]), torch.unbind(cache["k"]),
-                                torch.unbind(cache["v"]), strict=True):
-            q, k, v = self._qkv(lp, x, positions)
-            k_all = k_l + oh * k
-            v_all = v_l + oh * v
-            # single-token decode: the kv_len mask IS the causal mask
-            o = attention(q, k_all, v_all, causal=False, kv_len=cache_len + 1)
-            x = x + _proj_out(o, lp["wo"])
-            x = x + self._mlp_block(lp, x)
-            ks.append(k_all)
-            vs.append(v_all)
+        new = {n: [] for n in names}
+        for lp, *cache_l in zip(_unstack(params["layers"]),
+                                *(torch.unbind(cache[n]) for n in names), strict=True):
+            cache_l = dict(zip(names, cache_l, strict=True))
+            if c.mla:
+                out, cache_l = mla_decode(rms_norm(x, lp["attn_norm"]), lp, self._mla_dims(),
+                                          cache_l, cache_len, c.rope_theta)
+            else:
+                q, k, v = self._qkv(lp, x, positions)
+                cache_l = {"k": cache_l["k"] + oh * k, "v": cache_l["v"] + oh * v}
+                # single-token decode: the kv_len mask IS the causal mask
+                out = _proj_out(attention(q, cache_l["k"], cache_l["v"], causal=False,
+                                          kv_len=cache_len + 1), lp["wo"])
+            x = x + out
+            x = x + self._mlp_block(lp, x)[0]
+            for n in names:
+                new[n].append(cache_l[n])
         x = rms_norm(x, params["final_norm"])
-        return lm_logits(x, self._head(params)), {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return lm_logits(x, self._head(params)), {n: torch.stack(v) for n, v in new.items()}
+

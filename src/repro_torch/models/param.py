@@ -9,7 +9,7 @@ A model is defined by a *spec tree*: nested dicts whose leaves are
                                                shapes of a full-size config,
                                                no allocation)
   * ``param_axes(spec)``                     — logical-axis name tree, kept
-                                               for sharding (ROADMAP 6b)
+                                               for sharding (ROADMAP 6c)
 
 Each spec leaf is one tensor; per-layer weights are stacked on a leading
 ``layers`` dim, as the reference holds them, so the spec, ``param_count``,

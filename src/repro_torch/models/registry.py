@@ -4,16 +4,22 @@ from __future__ import annotations
 
 from ..configs.base import ArchConfig
 from .decoder import DecoderLM
+from .encdec import EncDecLM
+from .hybrid import HybridLM
+from .ssm import SSMLM
 
-FAMILIES = {"dense": DecoderLM, "vlm": DecoderLM}
-#: the reference's other families; their models land with ROADMAP item 6b
-NOT_PORTED = ("moe", "mla_moe", "ssm", "hybrid", "encdec")
+FAMILIES = {
+    "dense": DecoderLM,
+    "moe": DecoderLM,
+    "mla_moe": DecoderLM,
+    "vlm": DecoderLM,
+    "ssm": SSMLM,
+    "hybrid": HybridLM,
+    "encdec": EncDecLM,
+}
 
 
 def build_model(cfg: ArchConfig):
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP item 6b)")
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
     return FAMILIES[cfg.family](cfg)

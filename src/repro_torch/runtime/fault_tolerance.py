@@ -16,7 +16,7 @@
 Step times come from :func:`repro_torch.core.clock.monotonic`, so a test can
 tick a fake clock.  Reading the loss as a float waits for the device, so a
 step's time on the card includes its device work.  Elastic rescaling
-(``runtime/elastic.py``) needs sharding and lands with ROADMAP item 6b.
+(``runtime/elastic.py``) needs sharding and lands with ROADMAP item 6c.
 """
 
 from __future__ import annotations

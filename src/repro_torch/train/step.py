@@ -7,11 +7,11 @@ with:
     block,
   * gradient accumulation over ``accum`` microbatches with a single
     optimizer update,
-  * the MoE auxiliary loss term (zero for the dense families ported here).
+  * the MoE auxiliary load-balancing loss (zero for the other families).
 
 ``make_prefill_step`` / ``make_decode_step`` are the serving entry points
-(forward logits only / one token against a KV cache).  The enc-dec batch
-form (``src_embeds``) lands with its model (ROADMAP item 6b).
+(forward logits only / one token against a KV cache).  An enc-dec batch
+(``src_embeds``, ``dec_tokens``, ``dec_labels``) goes to the model whole.
 """
 
 from __future__ import annotations
@@ -51,8 +51,13 @@ def make_loss_fn(model, settings: TrainSettings):
     def loss_fn(params, batch):
         if settings.cast_bf16:
             params = _cast_tree_bf16(params)
-        logits, aux = model.forward(params, batch["tokens"], remat=settings.remat)
-        loss = cross_entropy(logits, batch["labels"])
+        if "src_embeds" in batch:                               # enc-dec
+            logits, aux = model.forward(params, batch, remat=settings.remat)
+            labels = batch["dec_labels"]
+        else:
+            logits, aux = model.forward(params, batch["tokens"], remat=settings.remat)
+            labels = batch["labels"]
+        loss = cross_entropy(logits, labels)
         return loss + settings.aux_weight * aux, (loss, aux)
 
     return loss_fn
@@ -64,15 +69,17 @@ def init_train_state(model, params) -> dict:
 
 def make_train_step(model, settings: TrainSettings, grad_shardings=None):
     """``grad_shardings`` constrains gradients to the parameter shardings in
-    the reference; the port has no sharding until ROADMAP item 6b."""
+    the reference; the port has no sharding until ROADMAP item 6c."""
     if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings needs sharding/ (ROADMAP item 6b)")
+        raise NotImplementedError("grad_shardings needs sharding/ (ROADMAP item 6c)")
     loss_fn = make_loss_fn(model, settings)
 
     def grad_fn(params, batch):
         flat = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params).items()}
         total, (loss, aux) = loss_fn(tree_from_paths(flat), batch)
-        grads = torch.autograd.grad(total, list(flat.values()))
+        # a leaf the loss never reads (a hybrid's shared block below its
+        # cadence) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(total, list(flat.values()), materialize_grads=True)
         return tree_from_paths(dict(zip(flat, grads, strict=True))), loss.detach(), aux.detach()
 
     def train_step(state: dict, batch: dict):
@@ -102,6 +109,9 @@ def make_train_step(model, settings: TrainSettings, grad_shardings=None):
 def make_prefill_step(model, remat: str = "none"):
     @torch.no_grad()
     def prefill_step(params, batch):
+        if "src_embeds" in batch:
+            enc_out = model.encode(params, batch["src_embeds"], remat=remat)
+            return model.decode_train(params, enc_out, batch["dec_tokens"], remat=remat)
         logits, _ = model.forward(params, batch["tokens"], remat=remat)
         return logits
 

@@ -30,7 +30,7 @@ def test_add_matches_reference(shape, cfg, dtype):
     a = jnp.asarray(rng.normal(size=shape), dtype)
     b = jnp.asarray(rng.normal(size=shape), dtype)
     ref = np.asarray(jax_add(a, b, cfg), np.float32)
-    ta, tb = inputs_from_numpy([np.asarray(a), np.asarray(b)])
+    ta, tb = inputs_from_numpy([np.asarray(a), np.asarray(b)], "cpu")
     assert ta.dtype == getattr(torch, dtype)
     out = add(ta, tb, cfg)
     assert out.dtype == ta.dtype and out.shape == shape

@@ -24,6 +24,7 @@ from repro_torch.cuda_bench import (
 )
 from repro_torch.cuda_bench import measure as measure_mod
 from repro_torch.cuda_bench.validity import MAX_GRID_Y, SMEM_LIMIT, validate_geometry
+from repro_torch.interop import inputs_from_numpy
 from repro_torch.kernels import KERNEL_BENCHES, _build
 from repro_torch.kernels.common import KernelGeometry
 
@@ -32,12 +33,20 @@ from repro_torch.kernels.common import KernelGeometry
 @pytest.mark.parametrize("shape", [(64, 128), (128, 256), (40, 384)])
 @pytest.mark.parametrize("input_seed", [0, 3])
 def test_materialize_is_byte_identical_to_reference(kernel, shape, input_seed):
-    ours = make_workload(kernel, *shape, input_seed=input_seed).materialize()
+    ours = make_workload(kernel, *shape, input_seed=input_seed).materialize("cpu")
     ref = ref_make_workload(kernel, *shape, input_seed=input_seed).materialize()
     assert len(ours) == len(ref) == KERNEL_BENCHES[kernel].n_inputs
     for t, r in zip(ours, ref, strict=True):
         assert t.dtype == torch.float32
         assert np.array_equal(t.numpy(), np.asarray(r))
+
+
+def test_no_device_is_assumed():
+    """Inputs land on the device the caller names; none is assumed."""
+    with pytest.raises(TypeError, match="device"):
+        make_workload("add", 64, 128).materialize()
+    with pytest.raises(TypeError, match="device"):
+        inputs_from_numpy([np.zeros((2, 3), np.float32)])
 
 
 def test_workload_defaults_and_minimum():

@@ -216,8 +216,22 @@ def test_cli_trains_and_resumes_on_the_cpu(tmp_path):
     assert latest_step(str(tmp_path / "ckpt")) == 6
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b", "mamba2-130m",
+                                  "zamba2-1.2b", "whisper-medium"])
+def test_cli_trains_every_family_in_process(arch, tmp_path, capsys):
+    """``--arch`` reaches each family (whisper through its enc-dec batch)."""
+    launch_train.main(["--arch", arch, "--reduced", "--steps", "3", "--batch", "2", "--seq",
+                       "16", "--device", "cpu", "--ckpt", str(tmp_path / "ckpt")])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[train]")]
+    assert len(lines) == 3 and f"arch={arch} reduced=True" in lines[0], lines
+    assert "3 steps in" in lines[1] and "resumed_from=None" in lines[1]
+    first, last = map(float, lines[2].split("loss ")[1].split(" -> "))
+    assert np.isfinite([first, last]).all()
+    assert latest_step(str(tmp_path / "ckpt")) == 3
+
+
 def test_cli_refuses_what_one_card_cannot_do(monkeypatch):
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(NotImplementedError, match="6c"):
         launch_train.main(["--arch", "yi-34b", "--reduced", "--model-parallel", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

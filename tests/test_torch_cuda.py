@@ -316,3 +316,114 @@ def test_cuda_crash_resume_is_deterministic(card, tmp_path):
     for a, b in zip(tree_leaves(ref["params"]), tree_leaves(resumed["params"]), strict=True):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+#: the model families on the card against the port on the CPU, at
+#: ``chip_smoke.py`` phase 4h's bounds: the MoE configs and whisper in fp32
+#: (logits max|d|/max|ref|, gradients per leaf), mamba2 and zamba2 in bf16
+#: (per position median and max, gradients per leaf)
+FAMILY_BOUNDS = {
+    "olmoe-1b-7b": {"logits": 5e-4, "grad": 1e-3},
+    "deepseek-v2-236b": {"logits": 5e-4, "grad": 1e-3},
+    "whisper-medium": {"logits": 1e-2, "grad": 0.06},
+    "mamba2-130m": {"median": 6e-3, "max": 1.5e-2, "grad": 1.5e-2},
+    "zamba2-1.2b": {"median": 1e-3, "max": 1e-2, "grad": 1.2e-2},
+}
+
+
+@pytest.fixture
+def fp32_models(monkeypatch):
+    """Every model module of the port computes in fp32 (TF32 off)."""
+    from repro_torch.models import decoder, encdec, hybrid, layers, ssm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for mod in (layers, decoder, ssm, hybrid, encdec):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", torch.float32)
+
+
+@pytest.mark.parametrize("name", list(FAMILY_BOUNDS))
+def test_cuda_family_matches_the_cpu(card, name, request):
+    """A reduced config on the card against the port on the CPU, from the
+    same weights and batch: forward logits, eight decode steps, and each
+    leaf's gradient."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import TrainSettings, make_loss_fn
+    from repro_torch.tree import tree_from_paths, tree_map, tree_paths
+
+    bounds = FAMILY_BOUNDS[name]
+    if "logits" in bounds:
+        request.getfixturevalue("fp32_models")
+    model = build_model(REGISTRY[name].reduced())
+    on_cpu = init_params(model.spec(), torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda t: t.to(card), on_cpu)
+    batch_cpu = make_train_batch(DataConfig(seed=0), model.cfg, 64, 2, 0, device="cpu")
+    batch = tree_map(lambda t: t.to(card), batch_cpu)
+
+    def logits(params, b, device):
+        """Forward logits and eight decode steps' logits."""
+        bsz = next(iter(b.values())).shape[0]
+        if "src_embeds" in b:
+            full = model.forward(params, b)[0]
+            cache = model.init_cache(params, model.encode(params, b["src_embeds"]), bsz)
+            toks = b["dec_tokens"]
+        else:
+            full = model.forward(params, b["tokens"])[0]
+            cache, toks = model.init_cache(bsz, 16, device=device), b["tokens"]
+        steps = []
+        for t in range(8):
+            out, cache = model.decode_step(params, cache, torch.full((bsz,), t, device=device),
+                                           toks[:, t:t + 1])
+            steps.append(out)
+        return full.float().cpu(), torch.cat(steps, 1).float().cpu()
+
+    with torch.no_grad():
+        for got, ref in zip(logits(on_card, batch, card), logits(on_cpu, batch_cpu, "cpu"),
+                            strict=True):
+            if "logits" in bounds:
+                assert (got - ref).abs().max() / ref.abs().max() <= bounds["logits"]
+            else:
+                err = (got - ref).abs().amax(-1).flatten() / ref.abs().max()
+                assert err.median() <= bounds["median"] and err.max() <= bounds["max"]
+
+    def grads(params, b):
+        flat = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params).items()}
+        total, _ = make_loss_fn(model, TrainSettings(remat="none"))(tree_from_paths(flat), b)
+        return dict(zip(flat, torch.autograd.grad(total, list(flat.values()),
+                                                  materialize_grads=True), strict=True))
+
+    g_cpu, g_card = grads(on_cpu, batch_cpu), grads(on_card, batch)
+    for key, ref in g_cpu.items():
+        assert g_card[key].device.type == "cuda"
+        if not ref.any():       # reduced zamba2's shared block runs nowhere
+            assert not g_card[key].any(), key
+            continue
+        assert ((g_card[key].cpu() - ref).norm() / ref.norm()).item() <= bounds["grad"], key
+
+
+def test_cuda_moe_train_step_is_deterministic(card):
+    """Reduced olmoe's train step twice from the same state under
+    deterministic algorithms: every weight equal bit for bit (the dispatch's
+    sort, scatters, gathers and ``index_add`` included)."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model, init_params
+    from repro_torch.train import TrainSettings, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    if not CUBLAS_SET_BEFORE_CUDA:
+        pytest.skip("CUDA started before CUBLAS_WORKSPACE_CONFIG was set")
+    model = build_model(REGISTRY["olmoe-1b-7b"].reduced())
+    batch = make_train_batch(DataConfig(seed=0), model.cfg, 64, 2, 0, device=card)
+    step = make_train_step(model, TrainSettings(remat="none"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = init_params(model.spec(), torch.Generator(device=card).manual_seed(0), card)
+        runs = [step(init_train_state(model, params), batch) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, ma), (b, mb) = runs
+    assert float(ma["aux"]) > 0 and float(ma["loss"]) == float(mb["loss"])
+    for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"]), strict=True):
+        assert torch.equal(x, y)

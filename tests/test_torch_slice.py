@@ -178,8 +178,8 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
 
 
 #: modules the matrix, stores-and-analysis, telemetry-and-serving,
-#: static-gate and model-stack slices added; the walk below must reach each
-#: of them
+#: static-gate, model-stack and model-family slices added; the walk below
+#: must reach each of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
@@ -209,7 +209,9 @@ MATRIX_MODULES = (
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.deepseek_v2_236b",
     "repro_torch.configs.mamba2_130m", "repro_torch.configs.chameleon_34b",
     "repro_torch.models", "repro_torch.models.param", "repro_torch.models.layers",
-    "repro_torch.models.decoder", "repro_torch.models.registry", "repro_torch.optim",
+    "repro_torch.models.decoder", "repro_torch.models.registry", "repro_torch.models.moe",
+    "repro_torch.models.mla", "repro_torch.models.mamba2", "repro_torch.models.ssm",
+    "repro_torch.models.hybrid", "repro_torch.models.encdec", "repro_torch.optim",
     "repro_torch.optim.adamw", "repro_torch.train", "repro_torch.train.step",
     "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
