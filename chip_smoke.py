@@ -112,6 +112,24 @@ Phases (any failure exits non-zero and prints no result line):
    4096-token prefill, prefill against decode, decode milliseconds per
    step at B=2; reduced olmoe's crash at step 7 resumed to step 12 under
    deterministic algorithms, equal to an uninterrupted run (difference 0);
+4i. the paper's drivers, through the entry points a user calls:
+   ``repro_torch.benchmarks.paper_matrix`` in this process (``--backend
+   cuda --design smoke --bench mandelbrot --telemetry --report
+   --serve-dir``: 8192x8192, the five algorithms, S = 25, 50 with 8 and 4
+   experiments; the record names the card, every cell used its samples and
+   has finite finals, ``REPORT.md`` holds its tables, the trace's stage
+   totals equal the units' ``stage_s``, the serving query hits on the
+   card's name); its warm replay on the ``device`` executor from a copy of
+   the store as ``python -m`` (exit 0), ``python -m
+   repro_torch.tools.compare_stores`` on the two stores (``IDENTICAL``) and
+   on a copy with one value one ulp off (exit 1, the key named);
+   ``repro_torch.benchmarks.run``'s rows in this process (the kernels and
+   their plain versions in CUDA-event time, a GA tune of add on the card,
+   fig2/3/4 and the claims on the matrix, the host rows; every number
+   finite); quickstart's real-measurement part in this process; then
+   ``python -m repro_torch.examples.tune_kernel --x 8192 --y 8192`` and
+   ``python -m repro_torch.examples.train_lm --full`` for 10 steps and again
+   for 20 (resumed from 10, the loss falling in each run);
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -315,20 +333,11 @@ def ptxas_report(log: str) -> dict:
 
 
 def time_ms(fn, n: int, warmup: int = 2) -> float:
-    """Mean device time of one call over ``n`` back-to-back calls."""
-    import torch
+    """Mean device time of one call over ``n`` back-to-back calls: the
+    package's CUDA-event timer, which ``benchmarks.run``'s kernel rows use."""
+    from repro_torch.cuda_bench.events import time_ms as events_time_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    return events_time_ms(fn, n, warmup)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -639,8 +648,8 @@ def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
                                             materialise_s=inputs["s"])
 
 
-def check_trace(spec, run_dir: str) -> dict:
-    """Harris's cold trace against the run: each stage's trace total beside
+def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
+    """A cold run's trace against the run: each stage's trace total beside
     the units' summed ``stage_s`` (read back from the unit journal), which
     must agree to 1e-6 s; the completed units and experiments against the
     plan; the trace's command line in a process of its own."""
@@ -670,7 +679,7 @@ def check_trace(spec, run_dir: str) -> dict:
     cli = subprocess.run([sys.executable, "-m", "repro_torch.telemetry", run_dir],
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    print(f"trace harris cold: events={summary['n_events']} stage_total_s={totals} "
+    print(f"trace {label}: events={summary['n_events']} stage_total_s={totals} "
           f"units_stage_s={stage_s} max_abs_diff_s={max(diff.values())!r} "
           f"units_completed={counters.get('units_completed')}/{plans[0]['units_total']} "
           f"experiments_completed={counters.get('experiments_completed')}/{n_exp} "
@@ -1696,6 +1705,208 @@ def run_family_phase(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 4i
+
+
+def module_cli(module: str, *argv: str, timeout: int = 900) -> subprocess.CompletedProcess:
+    """``python -m <module> <argv>`` in a process of its own, from the
+    checkout; its exit code, stdout and stderr."""
+    return subprocess.run([sys.executable, "-m", module, *argv], capture_output=True,
+                          text=True, timeout=timeout, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+
+
+def csv_rows(fn, *args) -> list[tuple[str, float, str]]:
+    """Call one of ``benchmarks.run``'s row functions and parse what it
+    prints (``name,us_per_call,derived``); each row is echoed to the log."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    rows = []
+    for line in out.getvalue().strip().splitlines():
+        print(f"drivers row {line}")
+        name, value, derived = line.split(",", 2)
+        rows.append((name, float(value), derived))
+    return rows
+
+
+def loss_line(stdout: str) -> tuple[float, float]:
+    first, last = re.search(r"^loss: (\S+) -> (\S+)$", stdout, re.M).groups()
+    return float(first), float(last)
+
+
+def run_drivers_phase(tmp: str) -> dict:
+    """Phase 4i: the paper's drivers and the examples, through the entry
+    points a user calls.  The paper matrix, ``benchmarks.run``'s card rows
+    and quickstart's real-measurement part run in this process, counted
+    from 0; the warm replay, ``compare_stores``, ``tune_kernel`` and
+    ``train_lm`` run as ``python -m`` in processes of their own."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import MatrixResults, RunRecord
+    from repro_torch.benchmarks import paper_matrix, run
+    from repro_torch.core import ExperimentDesign
+    from repro_torch.core.backends import BACKENDS
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import LAUNCHES
+
+    card = torch.cuda.get_device_name(0)
+    d, serve = os.path.join(tmp, "drivers"), os.path.join(tmp, "drivers_serve")
+    out = {}
+    for c in LAUNCHES.values():
+        c.n = 0
+
+    # the paper matrix, cold: mandelbrot at 8192x8192, the five algorithms,
+    # the smoke design (S = 25, 50; E = 8, 4)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = paper_matrix.main(["--backend", "cuda", "--design", "smoke", "--bench",
+                                "mandelbrot", "--out", d, "--telemetry", "--report",
+                                "--serve-dir", serve])
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"paper_matrix: exit {rc}")
+    for line in printed.getvalue().splitlines():
+        if line.startswith("[matrix] ") and "[session]" not in line:
+            print(f"drivers paper_matrix: {line}")
+    record = RunRecord.load(os.path.join(d, "mandelbrot_cuda.json"))
+    prov = record.extra["backend_provenance"]
+    require(prov["device_kind"] == card, f"paper_matrix: provenance {prov}")
+    results = MatrixResults.load(os.path.join(d, "mandelbrot_cuda.npz"))
+    walls = {(w["algo"], w["sample_size"]): w for w in record.extra["cell_wall_s"]}
+    design = ExperimentDesign.smoke()
+    require(set(results.cells) == {(a, s) for a in paper_matrix.ALGOS
+                                   for s in design.sample_sizes},
+            f"paper_matrix: cells {sorted(results.cells)}")
+    for (algo, s), cell in sorted(results.cells.items()):
+        w = walls[(algo, s)]
+        print(f"drivers matrix mandelbrot/{algo} S={s}: "
+              f"median_final_ms={float(np.median(cell.final_values)) * 1e3!r} "
+              f"best_final_ms={float(cell.final_values.min()) * 1e3!r} "
+              f"n_samples_used={cell.n_samples_used.tolist()} wall_s={w['wall_s']} "
+              f"compile_s={w['compile_s']} measure_s={w['measure_s']}")
+        e = design.n_experiments[design.sample_sizes.index(s)]
+        require(cell.n_samples_used.tolist() == [s] * e,
+                f"paper_matrix {algo} S={s}: samples {cell.n_samples_used.tolist()}")
+        require(bool(np.isfinite(cell.final_values).all()),
+                f"paper_matrix {algo} S={s}: finals {cell.final_values.tolist()}")
+    with open(os.path.join(d, "REPORT.md")) as f:
+        report = f.read()
+    require("## Quality vs sample size" in report, "paper_matrix: REPORT.md lacks its tables")
+    spec = paper_matrix.combo_spec("mandelbrot", "cuda", design, d)
+    out["trace"] = check_trace(spec, d, label="mandelbrot paper_matrix")
+    hit = json.loads(serving_cli("query", "--dir", serve, "--kernel", "mandelbrot", "--x",
+                                 "8192", "--y", "8192", "--device", card, "--expect", "hit"
+                                 ).strip().splitlines()[-1])
+    print(f"drivers paper_matrix: wall_s={wall:.3f} best_observed_ms="
+          f"{record.result['best_observed'] * 1e3!r} device_kind={prov['device_kind']!r} "
+          f"serving status={hit['status']} config={json.dumps(hit['config'], sort_keys=True)}")
+    require(hit["status"] == "hit", f"paper_matrix --serve-dir: {hit}")
+    out["matrix_wall_s"] = wall
+
+    # benchmarks.run: the card rows, the figure rows and claims on the
+    # matrix, the host rows
+    t0 = time.perf_counter()
+    rows = csv_rows(run.table_kernels) + csv_rows(run.table_cuda_backend)
+    for fn in (run.table_fig2, run.table_fig3, run.table_fig4):
+        rows += csv_rows(fn, d)
+    for fn in (run.table_searcher_overhead, run.table_engine_dispatch,
+               run.table_scheduler_tail, run.table_telemetry_overhead):
+        rows += csv_rows(fn)
+    BACKENDS.pop("straggler", None)    # the scheduler row's synthetic backend
+    claims = run.validate(d)
+    for name, v in claims.items():
+        print(f"drivers claim {name}: {v.status}")
+    print(f"drivers run rows: n={len(rows)} wall_s={time.perf_counter() - t0:.3f}")
+    require(all(math.isfinite(v) for _, v, _ in rows), "benchmarks.run: a row is not finite")
+    names = [n for n, _, _ in rows]
+    for want in ("kernel_cuda/add", "kernel_cuda/harris", "kernel_cuda/mandelbrot",
+                 "cuda_backend/add", "scheduler_tail/steal", "telemetry_overhead/on"):
+        require(want in names, f"benchmarks.run: no {want} row")
+    require(sum(n.startswith("fig2/mandelbrot_cuda/") for n in names) == 10,
+            f"benchmarks.run: fig2 rows {names}")
+    out["card_rows"] = {n: dict(us=v, derived=dv) for n, v, dv in rows
+                        if n.startswith(("kernel_cuda/", "cuda_backend/"))}
+    require(all(v.status == "insufficient-data" for v in claims.values()),
+            f"claims decided at E = 8, 4: {claims}")
+
+    # quickstart's real-measurement part: harris tuned on the card
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        r = quickstart.real_measurement()
+    print(f"drivers quickstart: {printed.getvalue().strip()}")
+    require(math.isfinite(r.final_value), f"quickstart: final {r.final_value}")
+    torch.cuda.synchronize()
+    got = {k: c.n for k, c in LAUNCHES.items()}
+    print(f"drivers launches in this process: {got}")
+    require(all(n > 0 for n in got.values()), f"drivers: a kernel was never launched: {got}")
+    out["launches"] = got
+
+    # the warm replay on the device executor, from a copy of the store
+    warm = os.path.join(tmp, "drivers_warm")
+    os.makedirs(warm)
+    store = "mandelbrot_cuda_cache.json"
+    shutil.copy(os.path.join(d, store), os.path.join(warm, store))
+    t0 = time.perf_counter()
+    replay = module_cli("repro_torch.benchmarks.paper_matrix", "--backend", "cuda",
+                        "--design", "smoke", "--bench", "mandelbrot", "--out", warm,
+                        "--executor", "device", "--max-workers", "2", "--force", "--resume")
+    print(f"drivers warm replay: exit={replay.returncode} wall_s={time.perf_counter() - t0:.3f} "
+          f"{replay.stdout.strip().splitlines()[-1] if replay.stdout.strip() else ''}")
+    require(replay.returncode == 0, f"warm replay: exit {replay.returncode}: "
+                                    f"{replay.stderr[-3000:]}")
+    same = module_cli("repro_torch.tools.compare_stores", os.path.join(d, store),
+                      os.path.join(warm, store))
+    print(f"drivers compare_stores cold vs warm: exit={same.returncode} {same.stdout.strip()}")
+    require(same.returncode == 0 and same.stdout.startswith("IDENTICAL"),
+            f"compare_stores: {same.stdout} {same.stderr[-2000:]}")
+    nudged = os.path.join(tmp, "drivers_nudged.json")
+    with open(os.path.join(d, store)) as f:
+        raw = json.load(f)
+    values = raw["values"] if isinstance(raw, dict) and "__format__" in raw else raw
+    key = sorted(k for k, v in values.items() if math.isfinite(v))[0]
+    values[key] = float(np.nextafter(values[key], np.inf))
+    with open(nudged, "w") as f:
+        json.dump(raw, f)
+    differ = module_cli("repro_torch.tools.compare_stores", os.path.join(d, store), nudged)
+    print(f"drivers compare_stores one ulp: exit={differ.returncode} "
+          f"names_key={f'value mismatch: {key}' in differ.stdout}")
+    require(differ.returncode == 1 and f"value mismatch: {key}" in differ.stdout,
+            f"compare_stores on a one-ulp change: {differ.stdout}")
+
+    # the examples, as a user runs them
+    t0 = time.perf_counter()
+    tuned = module_cli("repro_torch.examples.tune_kernel", "--x", "8192", "--y", "8192")
+    final = re.search(r"re-measured 5x \(paper protocol\): (\S+) ms", tuned.stdout)
+    print(f"drivers tune_kernel 8192x8192: exit={tuned.returncode} "
+          f"wall_s={time.perf_counter() - t0:.3f} final_ms={final.group(1) if final else None}")
+    require(tuned.returncode == 0 and final and math.isfinite(float(final.group(1))),
+            f"tune_kernel: {tuned.stdout[-2000:]} {tuned.stderr[-2000:]}")
+    ckpt = os.path.join(tmp, "drivers_train_lm")
+    trained = {}
+    for steps in (10, 20):
+        t0 = time.perf_counter()
+        done = module_cli("repro_torch.examples.train_lm", "--full", "--steps", str(steps),
+                          "--ckpt", ckpt)
+        lines = {k: v for k, v in (line.split(": ", 1) for line in done.stdout.splitlines()
+                                   if line.startswith(("resumed from", "steps run", "loss")))}
+        print(f"drivers train_lm --full --steps {steps}: exit={done.returncode} "
+              f"wall_s={time.perf_counter() - t0:.3f} {lines}")
+        require(done.returncode == 0, f"train_lm: {done.stderr[-3000:]}")
+        trained[steps] = dict(lines, tok_s=float(re.search(r"\((\d+) tok/s\)",
+                                                           lines["steps run"]).group(1)))
+        first, last = loss_line(done.stdout)
+        require(math.isfinite(first) and last < first,
+                f"train_lm --steps {steps}: loss {first} -> {last}")
+    require(trained[20]["resumed from"] == "10", f"train_lm: resumed from {trained[20]}")
+    out["train_lm"] = trained
+    return out
+
+
 def time_add_paths(a, b, winner: dict) -> dict:
     """add's vector and scalar paths on the same aligned inputs, each launched
     through its C entry point (uncounted: these launches are not the main
@@ -1883,6 +2094,10 @@ def main() -> int:
         t0 = time.perf_counter()
         families = run_family_phase(tmp)              # 4h.
         phase_s["families"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        drivers = run_drivers_phase(tmp)              # 4i.
+        phase_s["drivers"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 
@@ -1895,13 +2110,14 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (main_path["launches"][name] + searchers["launches"][name]
-                         + matrix["launches"][name] + served),
+                         + matrix["launches"][name] + served + drivers["launches"][name]),
             "launches_by_phase": {"main": main_path["launches"][name],
                                   "searchers": searchers["launches"][name],
                                   "matrix": matrix["launches"][name],
                                   "serving": served,
                                   "model_stack": model["launches"][name],
-                                  "model_families": families["launches"][name]},
+                                  "model_families": families["launches"][name],
+                                  "drivers": drivers["launches"][name]},
             "max_abs_err": max_err[name],
             "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -1913,6 +2129,8 @@ def main() -> int:
             "searchers": searchers["searchers"][name],
             "matrix": matrix["stats"][name],
             **({"serving": serving} if name == "mandelbrot" else {}),
+            "drivers": {n: r for n, r in drivers["card_rows"].items()
+                        if n.endswith("/" + name)},
             "status": "ok",
         })
     print(f"gpu: {gpu_line()}")

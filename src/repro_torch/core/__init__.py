@@ -23,6 +23,7 @@ from .measurement import (
     BaseMeasurement,
     CachedMeasurement,
     CallableMeasurement,
+    Measurement,
     StageClock,
     TimingMeasurement,
     fence,
@@ -36,7 +37,7 @@ from .searchers import (
     TuningResult,
     make_searcher,
 )
-from .space import Param, SearchSpace, paper_space
+from .space import Config, Param, SearchSpace, paper_space
 from .stores import STORES, SqliteMeasurementStore, make_store
 from .workunits import (
     ExperimentUnit,
@@ -53,6 +54,7 @@ __all__ = [
     "CachedMeasurement",
     "CallableMeasurement",
     "CellResult",
+    "Config",
     "DiskCachedMeasurement",
     "EXECUTORS",
     "EXTRA_ALGORITHMS",
@@ -60,6 +62,7 @@ __all__ = [
     "ExperimentDesign",
     "ExperimentUnit",
     "MatrixResults",
+    "Measurement",
     "MeasurementStore",
     "PAPER_ALGORITHMS",
     "Param",

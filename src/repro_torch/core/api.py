@@ -653,7 +653,8 @@ class TuningSession:
                 raise ValueError(
                     f"backend {self.spec.backend!r} has no compile pipeline; "
                     "pipeline_workers applies to staged backends only "
-                    "(BACKENDS[...].pipeline)"
+                    "(BACKENDS[...].pipeline; not ported yet, ROADMAP.md "
+                    "Queue 1 item 4)"
                 )
             self.spec = self.spec.replace(
                 backend_kwargs={
@@ -666,7 +667,8 @@ class TuningSession:
                 raise ValueError(
                     f"backend {self.spec.backend!r} has no compile stage; "
                     "compile_cache applies to staged backends only "
-                    "(BACKENDS[...].pipeline)"
+                    "(BACKENDS[...].pipeline; not ported yet, ROADMAP.md "
+                    "Queue 1 item 4)"
                 )
             self.spec = self.spec.replace(
                 backend_kwargs={

@@ -6,6 +6,8 @@ stopped before D2H).  The port keeps the reference's measurement protocol
 served, so searchers can be budget-audited, and ``measure_final`` re-runs the
 winning config ``final_repeats`` times (paper: 10) and returns the median.
 
+* :class:`Measurement` — the protocol every backend meets: ``measure``,
+  ``measure_batch`` and ``measure_final``.
 * :class:`CallableMeasurement` — wraps any ``f(config) -> seconds``.
 * :class:`TimingMeasurement`  — wall-clock of a real callable, fenced.
 * :class:`CachedMeasurement`  — memoizes another measurement (the paper runs
@@ -16,7 +18,7 @@ winning config ``final_repeats`` times (paper: 10) and returns the median.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Sequence
+from typing import Callable, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +26,12 @@ import torch
 from ..telemetry.null import NULL_TELEMETRY
 from .clock import monotonic
 from .space import Config
+
+
+class Measurement(Protocol):
+    def measure(self, config: Config) -> float: ...
+    def measure_batch(self, configs: Sequence[Config]) -> np.ndarray: ...
+    def measure_final(self, config: Config, repeats: int = 10) -> float: ...
 
 
 class StageClock:

@@ -427,3 +427,40 @@ def test_cuda_moe_train_step_is_deterministic(card):
     assert float(ma["aux"]) > 0 and float(ma["loss"]) == float(mb["loss"])
     for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"]), strict=True):
         assert torch.equal(x, y)
+
+
+def test_cuda_driver_rows_run_on_the_card(card, capsys):
+    """``benchmarks.run``'s card rows: each kernel and its plain version in
+    CUDA-event time, then a GA tune of add on the ``cuda`` backend; every
+    kernel launches and every number is finite."""
+    from repro_torch.benchmarks import run
+
+    for c in LAUNCHES.values():
+        c.n = 0
+    run.table_kernels(1024, 2048)
+    run.table_cuda_backend(budget=4)
+    rows = [line.split(",", 2) for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r[0] for r in rows] == ["kernel_cuda/add", "kernel_cuda/harris",
+                                    "kernel_cuda/mandelbrot", "cuda_backend/add"]
+    assert all(math.isfinite(float(r[1])) and float(r[1]) > 0 for r in rows)
+    assert all(math.isfinite(float(r[2].split()[0].split("=")[1])) for r in rows[:3])
+    assert torch.cuda.get_device_name(card) in rows[3][2]
+    assert all(c.n > 0 for c in LAUNCHES.values())
+
+
+def test_cuda_paper_matrix_combo_on_the_card(card, tmp_path):
+    """A ``cuda`` combo of the paper driver on the card: the record names the
+    card, every cell's best final is finite and the kernel launched."""
+    from repro_torch import ExperimentDesign, RunRecord
+    from repro_torch.benchmarks import paper_matrix
+
+    LAUNCHES["mandelbrot"].n = 0
+    paper_matrix.run_combo("mandelbrot", "cuda",
+                           ExperimentDesign(sample_sizes=(5,), n_experiments=(2,),
+                                            final_repeats=2),
+                           str(tmp_path), algorithms=("rs", "ga"), verbose=False,
+                           backend_kwargs={"x": 512, "y": 1024})
+    rec = RunRecord.load(str(tmp_path / "mandelbrot_cuda.json"))
+    assert rec.extra["backend_provenance"]["device_kind"] == torch.cuda.get_device_name(card)
+    assert all(math.isfinite(c["best_final"]) for c in rec.result["cells"])
+    assert LAUNCHES["mandelbrot"].n > 0

@@ -178,8 +178,8 @@ def test_reference_store_loads_in_the_port(tmp_path, fmt):
 
 
 #: modules the matrix, stores-and-analysis, telemetry-and-serving,
-#: static-gate, model-stack and model-family slices added; the walk below
-#: must reach each of them
+#: static-gate, model-stack, model-family and drivers slices added; the walk
+#: below must reach each of them
 MATRIX_MODULES = (
     "repro_torch.core.dataset", "repro_torch.core.executors",
     "repro_torch.core.experiment", "repro_torch.core.runner",
@@ -216,6 +216,11 @@ MATRIX_MODULES = (
     "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.checkpoint",
     "repro_torch.checkpoint.checkpointer", "repro_torch.runtime",
     "repro_torch.runtime.fault_tolerance", "repro_torch.launch", "repro_torch.launch.train",
+    "repro_torch.tools", "repro_torch.tools.compare_stores", "repro_torch.benchmarks",
+    "repro_torch.benchmarks.paper_matrix", "repro_torch.benchmarks.run",
+    "repro_torch.examples", "repro_torch.examples.quickstart",
+    "repro_torch.examples.tune_kernel", "repro_torch.examples.train_lm",
+    "repro_torch.cuda_bench.events",
 )
 
 
