@@ -105,7 +105,9 @@ Phases (any failure exits non-zero and prints no result line):
    gradient norm; finite and falling; peak memory; model FLOPs against the
    data sheet's 989 TFLOP/s bf16 and 67 TFLOP/s fp32) and prefill against
    32 decode steps at B=2 (top-1 >= 0.99, correlation > 0.99, in fp32 for
-   zamba2 and whisper; the prefill's dropped MoE assignments); whisper
+   zamba2 and whisper; an MoE prefill at ample capacity, where none of its
+   assignments may drop, with the default capacity's reading and dropped
+   assignments printed beside); whisper
    (1500 frames, 448 decoder tokens, B=4) at its 24 + 24 layers timed, its
    gradient norm inf (the reference's init), then at 2 + 2 layers learning
    and decoding; deepseek-v2 at 2 of 60 layers serves only: a timed
@@ -130,6 +132,21 @@ Phases (any failure exits non-zero and prints no result line):
    ``python -m repro_torch.examples.tune_kernel --x 8192 --y 8192`` and
    ``python -m repro_torch.examples.train_lm --full`` for 10 steps and again
    for 20 (resumed from 10, the loss falling in each run);
+4j. sharding on the one-card host (launches none of the three kernels):
+   phase 4g's cut of yi-34b (full width, 2 layers, seq 4096, batch 1,
+   the dry run's ``remat="dots"``) through the DTensor path on a 1 x 1
+   ("data", "model") mesh over an
+   ``nccl`` group, its params, batch and gradients placed by the logical-axis
+   rules: its loss and each leaf's gradient against the plain step on the
+   same weights and batch (within 4g's ``MODEL_GRAD_REL``), three train
+   steps of each timed (the difference is DTensor's dispatch overhead, not
+   gated) and the DTensor step's ``max_memory_allocated``; the dry run's
+   ``build_step`` at the same cut on a 1 x 1 fake mesh in a process of its
+   own, whose tracked peak must lie within 15 % of that; ``python -m
+   repro_torch.launch.train --arch yi-34b --reduced --model-parallel 1`` on
+   the card (exit 0, loss falls); one full-size dry-run cell, yi-34b
+   ``train_4k`` on the single 16 x 16 fake mesh, in a process of its own (its
+   FLOPs, collective bytes and peak GiB per device);
 5. timing at 8192x8192 with CUDA events: each kernel at the default config
    and at the tuned winner, its plain version, the matching PyTorch call
    where one exists, and the least time the card could take (bound; for
@@ -1512,35 +1529,60 @@ def prefill_against_decode(name, model, params, tokens: int = 32) -> dict:
     decode steps (whisper: its decoder over the encoder's output of one
     batch's frames).  ``FAMILY_PD_FP32`` configs are held in fp32: deep
     stacks of saturated attention turn bf16's last bits into different
-    winners (their bf16 reading is printed beside)."""
+    winners (their bf16 reading is printed beside).
+
+    An MoE config is held at ample capacity (``capacity_factor`` =
+    experts / top-k, so each expert's capacity is its group's token count)
+    and none of the prefill's assignments may drop: decode's capacity never
+    drops at B=2, while the trained router's default capacity drops a
+    varying share of the prefill's, which is another function (dropped
+    assignments are the design's, as in the reference).  The default
+    capacity's reading and its dropped assignments are printed beside, and
+    with each reading the (token, MoE layer) pairs that prefill and decode
+    routed to different experts (bf16 near-ties in the router)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.models import build_model
 
     cfg = model.cfg
     seq = 1500 if cfg.family == "encdec" else tokens
     batch = make_train_batch(DataConfig(seed=0), cfg, seq, 2, 1, device="cuda")
     if "src_embeds" in batch:
         batch["dec_tokens"] = batch["dec_tokens"][:, :tokens]
+    held_model = model
+    if cfg.moe:
+        held_model = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)))
 
-    def compare(dtype):
+    def compare(m, dtype):
         with compute_dtype(dtype), torch.no_grad(), moe_recorder() as rec:
-            full = family_logits(model, params, batch)
-            dropped = sum(rec["dropped"])
-            last = family_decode(model, params, batch, tokens, "cuda")[:, -1]
+            full = family_logits(m, params, batch)
+            dropped, layers = sum(rec["dropped"]), len(rec["experts"])
+            last = family_decode(m, params, batch, tokens, "cuda")[:, -1]
         got, want = last.float().cpu(), full[:, -1].float().cpu()
         require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
                 f"{name} prefill vs decode: logits not finite")
+        # (token, MoE layer) pairs whose expert set differs between the two
+        routed = sum(int((rec["experts"][i].reshape(2, tokens, -1).sort(-1).values != torch.stack(
+            [rec["experts"][layers * (t + 1) + i].reshape(2, -1) for t in range(tokens)],
+            1).sort(-1).values).any(-1).sum()) for i in range(layers))
         return {"top1": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
                 "corr": torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1].item(),
-                "prefill_dropped_assignments": dropped}
+                "prefill_dropped_assignments": dropped, "routed_differently": routed}
 
     held = torch.float32 if name in FAMILY_PD_FP32 else torch.bfloat16
-    out = {"dtype": str(held).removeprefix("torch."), **compare(held)}
+    out = {"dtype": str(held).removeprefix("torch."), **compare(held_model, held)}
+    if cfg.moe:
+        out["capacity_factor"] = held_model.cfg.moe.capacity_factor
+        out["default_capacity_reading"] = compare(model, held)
     if held != torch.bfloat16:
-        out["bf16_reading"] = compare(torch.bfloat16)
+        out["bf16_reading"] = compare(held_model, torch.bfloat16)
     print(f"model prefill-vs-decode {name} full width B=2 {tokens} tokens: {out}")
-    require(out["top1"] >= 0.99 and out["corr"] > 0.99, f"{name} prefill vs decode: {out}")
+    require(out["top1"] >= 0.99 and out["corr"] > 0.99
+            and out["prefill_dropped_assignments"] == 0, f"{name} prefill vs decode: {out}")
     return out
 
 
@@ -1907,6 +1949,244 @@ def run_drivers_phase(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 4j
+
+#: phase 4j: the 1 x 1 mesh's dry run against the real step's peak memory
+SHARD_PEAK_REL = 0.15
+SHARD_STEPS = 3
+#: the 1 x 1 fake-mesh dry run of phase 4g's cut, in a process of its own
+#: (a fake process group never shares a process with an nccl one)
+FAKE_1X1 = """
+import dataclasses, json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import REGISTRY
+from repro_torch.configs.base import ShapeCfg
+from repro_torch.kernels import LAUNCHES
+from repro_torch.launch.dryrun import build_step, measure_step
+from repro_torch.launch.mesh import make_host_mesh, start_fake_process_group
+from repro_torch.optim import AdamWConfig
+from repro_torch.sharding import ShardingRules
+from repro_torch.train import TrainSettings
+layers, seq = int(sys.argv[1]), int(sys.argv[2])
+for c in LAUNCHES.values():
+    c.n = 0
+start_fake_process_group(1)
+mesh = make_host_mesh(1)
+cfg = dataclasses.replace(REGISTRY["yi-34b"], n_layers=layers)
+settings = TrainSettings(remat="dots", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+with FakeTensorMode():
+    fn, args = build_step(cfg, ShapeCfg("cut", seq, 1, "train"), mesh, ShardingRules(), settings)
+    m = measure_step(fn, args)
+print(json.dumps({**m, "launches": {k: c.n for k, c in LAUNCHES.items()}}))
+"""
+
+#: ``python -m <module> <argv>`` run in-process by a process of its own,
+#: which then prints the kernels' launch counts of that run as its last line
+COUNTED_MODULE = """
+import json, runpy, sys
+from repro_torch.kernels import LAUNCHES
+for c in LAUNCHES.values():
+    c.n = 0
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+finally:
+    print("launches " + json.dumps({k: c.n for k, c in LAUNCHES.items()}), flush=True)
+"""
+
+
+def counted_cli(module: str, *argv: str, timeout: int = 900) -> tuple:
+    """``module_cli`` with the kernels' launch counts of the run: (the
+    completed process, the counts, or None where the run printed none)."""
+    proc = subprocess.run([sys.executable, "-c", COUNTED_MODULE, module, *argv],
+                          capture_output=True, text=True, timeout=timeout, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    last = proc.stdout.strip().splitlines()[-1:] or [""]
+    counts = json.loads(last[0][len("launches "):]) if last[0].startswith("launches ") else None
+    return proc, counts
+
+
+def dtensor_step_against_plain() -> dict:
+    """4j a, b (in a process of its own, so that its ``nccl`` group and its
+    allocator start fresh): phase 4g's cut (yi-34b at full width, 2 layers,
+    seq 4096, batch 1) through the DTensor path on a 1 x 1 ("data",
+    "model") mesh: three train steps, timed, with the card's peak memory;
+    then its loss and each leaf's gradient against the plain step on the
+    same weights and batch, and three plain train steps, timed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import REGISTRY, SHAPES
+    from repro_torch.data import DataConfig, make_train_batch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh, start_process_group
+    from repro_torch.models import build_model, init_params, param_axes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.sharding.regions import distribute
+    from repro_torch.train import TrainSettings, init_train_state, make_train_step
+    from repro_torch.train.step import make_grad_fn
+    from repro_torch.tree import tree_map, tree_paths
+
+    for c in LAUNCHES.values():
+        c.n = 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start_process_group("cuda")
+    mesh = make_host_mesh(1)
+    cfg = dataclasses.replace(REGISTRY["yi-34b"], n_layers=MODEL_LAYERS)
+    seq = SHAPES["train_4k"].seq_len
+    model = build_model(cfg)
+    # the dry run's remat ("dots")
+    settings = TrainSettings(remat="dots", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    batch = make_train_batch(DataConfig(seed=0), cfg, seq, 1, 0, device="cuda")
+    init = lambda: init_params(model.spec(), torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rules = ShardingRules()
+    p_shard = rules.tree_shardings(param_axes(model.spec()), init(), mesh)
+    dbatch = {k: distribute(v, rules.sharding_for(("batch", None), tuple(v.shape), mesh))
+              for k, v in batch.items()}
+    out = {}
+
+    def steps(make_state, batch, step_fn, tag):
+        """Three steps from a fresh state (the caller keeps no reference to
+        it, so each step holds only the state it replaces and the new one)."""
+        state = make_state()
+        times, losses = [], []
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"shard {tag} steps: s={[round(t, 4) for t in times]} losses={losses}")
+        require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                f"{tag} steps: losses {losses}")
+        return min(times[1:]), losses
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["dtensor_step_s"], out["dtensor_losses"] = steps(
+        lambda: init_train_state(model, tree_map(distribute, init(), p_shard)), dbatch,
+        make_train_step(model, settings, grad_shardings=p_shard), "dtensor 1x1")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    params = init()
+    grads, loss, _ = make_grad_fn(model, settings)(params, batch)
+    grads = tree_map(lambda g: g.cpu(), grads)
+    loss = float(loss)
+    dparams = tree_map(distribute, params, p_shard)
+    params = None
+    dgrads, dloss, _ = make_grad_fn(model, settings, grad_shardings=p_shard)(dparams, dbatch)
+    dloss = float(dloss.full_tensor())
+    grads = tree_paths(grads)
+    errs = {k: rel_err(g.full_tensor(), grads[k]) for k, g in tree_paths(dgrads).items()}
+    dgrads = grads = dparams = None
+    torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    out.update(loss=loss, dtensor_loss=dloss, loss_rel=abs(dloss - loss) / abs(loss),
+               grad_rel_worst=errs[worst], grad_worst_leaf=worst)
+    print(f"shard yi-34b L={cfg.n_layers} S={seq} B=1 mesh 1x1 vs plain: loss {loss:.6f} vs "
+          f"{dloss:.6f} (rel {out['loss_rel']:.3e}); worst leaf gradient max|d|/max|ref| "
+          f"{errs[worst]:.3e} ({worst}); bound {MODEL_GRAD_REL}")
+    require(out["loss_rel"] <= MODEL_GRAD_REL and errs[worst] <= MODEL_GRAD_REL,
+            f"DTensor step against the plain step: {out}")
+
+    out["plain_step_s"], _ = steps(lambda: init_train_state(model, init()), batch,
+                                   make_train_step(model, settings), "plain")
+    print(f"shard step s (best of steps 2-{SHARD_STEPS}): plain={out['plain_step_s']:.4f} "
+          f"dtensor 1x1={out['dtensor_step_s']:.4f} (DTensor dispatch overhead "
+          f"{out['dtensor_step_s'] - out['plain_step_s']:+.4f} s, not gated); dtensor "
+          f"peak {out['max_memory_allocated'] / 2**30:.2f} GiB")
+    out["launches"] = {k: c.n for k, c in LAUNCHES.items()}
+    return out
+
+
+#: 4j a, b in a process of its own
+SHARD_CARD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke.dtensor_step_against_plain()))
+"""
+
+
+def run_shard_phase(tmp: str) -> dict:
+    """Phase 4j: sharding on the one-card host.  The model stack launches
+    none of the three CUDA kernels.  Every part runs in a process of its
+    own, which sets the counts to 0 when it starts and reports them; the
+    phase's count is their sum."""
+    import torch
+
+    torch.cuda.empty_cache()
+    parts = {}
+    card = subprocess.run([sys.executable, "-c", SHARD_CARD, ROOT], capture_output=True,
+                          text=True, timeout=600, cwd=tmp,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    for line in card.stdout.strip().splitlines()[:-1]:
+        print(line)
+    require(card.returncode == 0, f"4j on the card: exit {card.returncode}: {card.stderr[-3000:]}")
+    out = json.loads(card.stdout.strip().splitlines()[-1])
+    parts["dtensor_vs_plain"] = out.pop("launches")
+
+    # 4j c: the dry run of the same cut on a 1 x 1 fake mesh
+    fake = subprocess.run([sys.executable, "-c", FAKE_1X1, str(MODEL_LAYERS), "4096"],
+                          capture_output=True, text=True, timeout=600, cwd=tmp,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    require(fake.returncode == 0,
+            f"1x1 fake dry run: exit {fake.returncode}: {fake.stderr[-3000:]}")
+    m = json.loads(fake.stdout.strip().splitlines()[-1])
+    parts["dryrun_1x1"] = m.pop("launches")
+    peak, real = m["memory"]["peak_bytes_per_dev"], out["max_memory_allocated"]
+    out["dryrun_1x1"] = m
+    out["peak_rel"] = abs(peak - real) / real
+    print(f"shard dryrun 1x1 yi-34b L={MODEL_LAYERS} S=4096 B=1: peak_bytes_per_dev={peak} "
+          f"({peak / 2**30:.2f} GiB) vs the card's max_memory_allocated={real} "
+          f"({real / 2**30:.2f} GiB): rel {out['peak_rel']:.4f} (bound {SHARD_PEAK_REL}); "
+          f"dot FLOPs {m['dots']['flops']:.4e}, "
+          f"collectives {m['collectives']['total_bytes']:.4e} B")
+    require(out["peak_rel"] <= SHARD_PEAK_REL, f"1x1 dry-run peak against the card: {out}")
+
+    # 4j d: the launcher on the card, through the mesh and the rules
+    t0 = time.perf_counter()
+    cli, parts["cli"] = counted_cli("repro_torch.launch.train", "--arch", "yi-34b", "--reduced",
+                                    "--steps", "10", "--batch", "8", "--seq", "256",
+                                    "--model-parallel", "1", "--ckpt",
+                                    os.path.join(tmp, "shard_cli"), timeout=600)
+    lines = [ln for ln in cli.stdout.splitlines() if ln.startswith("[train]")]
+    for line in lines:
+        print(f"  {line}")
+    loss = re.search(r"loss ([\d.]+) -> ([\d.]+)", cli.stdout)
+    require(cli.returncode == 0 and "mesh=(1, 1)" in cli.stdout and loss is not None
+            and float(loss.group(2)) < float(loss.group(1)),
+            f"launch.train --model-parallel 1: exit {cli.returncode}: {cli.stderr[-3000:]}")
+    out["cli"] = {"s": time.perf_counter() - t0, "loss": [float(x) for x in loss.groups()]}
+    print(f"shard cli: {out['cli']}")
+
+    # 4j e: one full-size dry-run cell, the single 16 x 16 mesh
+    t0 = time.perf_counter()
+    cell, parts["dryrun_cell"] = counted_cli("repro_torch.launch.dryrun", "--arch", "yi-34b",
+                                             "--shape", "train_4k", "--mesh", "single",
+                                             "--force", timeout=600)
+    cell_s = time.perf_counter() - t0
+    require(cell.returncode == 0 and "ALL CELLS PASSED" in cell.stdout,
+            f"dryrun yi-34b train_4k single: exit {cell.returncode}: {cell.stderr[-3000:]}")
+    with open(os.path.join(ROOT, "results", "dryrun_torch", "yi-34b_train_4k_single.json")) as f:
+        rec = json.load(f)
+    out["dryrun_cell"] = {k: rec[k] for k in ("n_devices", "flops_dot_corrected", "wall_s")}
+    out["dryrun_cell"].update(coll_bytes=rec["collectives"]["total_bytes"],
+                              peak_gib=rec["memory"]["peak_bytes_per_dev"] / 2**30, s=cell_s)
+    print(f"shard dryrun yi-34b train_4k single (16x16, fake): {out['dryrun_cell']}")
+    require(all(c is not None for c in parts.values()), f"4j parts without counts: {parts}")
+    out["launches_by_part"] = parts
+    out["launches"] = got = {k: sum(c[k] for c in parts.values()) for k in parts["cli"]}
+    print(f"shard launches by part: {parts}")
+    require(all(n == 0 for n in got.values()), f"the sharded model stack launched {got}")
+    return out
+
+
 def time_add_paths(a, b, winner: dict) -> dict:
     """add's vector and scalar paths on the same aligned inputs, each launched
     through its C entry point (uncounted: these launches are not the main
@@ -2098,6 +2378,10 @@ def main() -> int:
         t0 = time.perf_counter()
         drivers = run_drivers_phase(tmp)              # 4i.
         phase_s["drivers"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        shard = run_shard_phase(tmp)                  # 4j.
+        phase_s["shard"] = time.perf_counter() - t0
     print("phase wall s: " + " ".join(f"{k}={v:.3f}" for k, v in phase_s.items()))
     times = time_kernels(main_path["winners"])        # 5.
 
@@ -2117,7 +2401,8 @@ def main() -> int:
                                   "serving": served,
                                   "model_stack": model["launches"][name],
                                   "model_families": families["launches"][name],
-                                  "drivers": drivers["launches"][name]},
+                                  "drivers": drivers["launches"][name],
+                                  "sharding": shard["launches"][name]},
             "max_abs_err": max_err[name],
             "n_differing": n_diff[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -23,14 +23,29 @@ import threading
 import numpy as np
 import torch
 
+from ..sharding.regions import is_dtensor
 from ..tree import tree_from_paths, tree_map, tree_paths
 
 
-def _host(x) -> np.ndarray:
-    """A leaf as a numpy array that shares no memory with the live state."""
+def _host(x, keep: bool = True) -> np.ndarray | None:
+    """A leaf as a numpy array that shares no memory with the live state (a
+    sharded leaf gathered whole: every rank must call this).  With
+    ``keep=False`` (a rank that writes nothing) the leaf only joins the
+    gather and no host copy is made."""
+    if is_dtensor(x):
+        x = x.full_tensor()
+    if not keep:
+        return None
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True).numpy()
     return np.array(x)
+
+
+def _writer() -> bool:
+    """Of several ranks, rank 0 writes; a checkpoint holds whole leaves."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def save(ckpt_dir: str, step: int, state) -> str:
@@ -82,10 +97,15 @@ def restore(ckpt_dir: str, state_like, step: int | None = None):
     missing = sorted(set(ref) - set(manifest["leaves"]))
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]} ...")
+    from torch.distributed.tensor import distribute_tensor
+
     vals = {}
     for key, like in ref.items():
         arr = np.load(os.path.join(d, key.replace("/", "__") + ".npy"))
-        vals[key] = torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+        val = torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+        if is_dtensor(like):
+            val = distribute_tensor(val, like.device_mesh, like.placements)
+        vals[key] = val
     return tree_from_paths(vals), manifest["step"]
 
 
@@ -102,7 +122,10 @@ class AsyncCheckpointer:
 
     def save(self, step: int, state) -> None:
         self.wait()
-        snapshot = tree_map(_host, state)
+        writer = _writer()
+        snapshot = tree_map(lambda x: _host(x, writer), state)
+        if not writer:
+            return
 
         def work():
             save(self.ckpt_dir, step, snapshot)

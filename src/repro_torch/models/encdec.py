@@ -11,6 +11,12 @@ Serve path: the encoder output is projected ONCE into per-layer cross K/V at
 cache init (cross-attention K/V never change during decode), then each
 decode step runs self-attention against its growing cache plus frozen
 cross-attention reads.
+
+Sharded (DTensor params), each encoder and decoder layer (and each decode
+step's layer) runs as one local region replicated over ``model`` (the
+biases after each output projection would count once per ``model`` rank in
+a partial sum), batch-sharded over the data axes, with the residual stream
+constrained after each block (``constrain_residual``), as the reference.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.constrain import constrain_residual, strip_layer_axis
+from ..sharding.regions import maybe_region
 from .decoder import _maybe_remat, _proj_in, _proj_out, _unstack
 from .layers import COMPUTE_DTYPE, attention, gelu_mlp, layer_norm, lm_logits
-from .param import P
+from .param import P, param_axes
 
 
 def _attn_proj_spec(L: int, D: int, H: int, hd: int, prefix: str) -> dict:
@@ -75,7 +83,7 @@ def _mlp(lp, x):
 
 
 class EncDecLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, moe_groups: int = 1):
         self.cfg = cfg
         self.ed = cfg.encdec
 
@@ -113,45 +121,47 @@ class EncDecLM:
     def encode(self, params, src_embeds: torch.Tensor, remat: str = "none"):
         """src_embeds: (B, S, D) precomputed frame embeddings (stub frontend)."""
         s = src_embeds.shape[1]
-        x = src_embeds.to(COMPUTE_DTYPE) + params["enc_pos"][:s].to(COMPUTE_DTYPE)
+        x = maybe_region(lambda src, w: src.to(COMPUTE_DTYPE) + w["enc_pos"][:s].to(COMPUTE_DTYPE),
+                         (src_embeds,), {"enc_pos": params["enc_pos"]}, _EMBED_AXES,
+                         model_parallel=False)
         names = sorted(params["enc_layers"])
+        axes = self._axes("enc_layers")
 
         def block(x, *leaves):
             lp = dict(zip(names, leaves, strict=True))
-            h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-            o = attention(_q(lp, "", h), *_kv(lp, "", h), causal=False)
-            x = x + _out(lp, "", o)
-            h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-            return x + _mlp(lp, h)
+            return constrain_residual(maybe_region(_enc_layer, (x,), lp, axes,
+                                                   model_parallel=False))
 
         block = _maybe_remat(block, remat)
         for lp in _unstack(params["enc_layers"]):
             x = block(x, *(lp[n] for n in names))
-        return layer_norm(x, params["enc_final_scale"], params["enc_final_bias"])
+        return maybe_region(lambda h, w: layer_norm(h, w["enc_final_scale"], w["enc_final_bias"]),
+                            (x,), params, _FINAL_AXES, ("enc_final_scale", "enc_final_bias"),
+                            model_parallel=False)
+
+    def _axes(self, stack: str) -> dict:
+        return strip_layer_axis(param_axes(self.spec()[stack]))
 
     # ------------------------------------------------------------- decoder
     def decode_train(self, params, enc_out, dec_tokens, remat: str = "none"):
         t = dec_tokens.shape[1]
-        x = params["dec_embed"][dec_tokens].to(COMPUTE_DTYPE)
-        x = x + params["dec_pos"][:t].to(COMPUTE_DTYPE)
+        x = maybe_region(lambda tok, w: w["dec_embed"][tok].to(COMPUTE_DTYPE)
+                         + w["dec_pos"][:t].to(COMPUTE_DTYPE),
+                         (dec_tokens,), params, _EMBED_AXES, ("dec_embed", "dec_pos"),
+                         model_parallel=False)
         names = sorted(params["dec_layers"])
+        axes = self._axes("dec_layers")
 
         def block(x, enc_out, *leaves):
             lp = dict(zip(names, leaves, strict=True))
-            h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-            o = attention(_q(lp, "self_", h), *_kv(lp, "self_", h), causal=True)
-            x = x + _out(lp, "self_", o)
-            h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-            o = attention(_q(lp, "cross_", h), *_kv(lp, "cross_", enc_out), causal=False)
-            x = x + _out(lp, "cross_", o)
-            h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
-            return x + _mlp(lp, h)
+            return constrain_residual(maybe_region(_dec_layer, (x, enc_out), lp, axes,
+                                                   model_parallel=False))
 
         block = _maybe_remat(block, remat)
         for lp in _unstack(params["dec_layers"]):
             x = block(x, enc_out, *(lp[n] for n in names))
-        x = layer_norm(x, params["dec_final_scale"], params["dec_final_bias"])
-        return lm_logits(x, params["dec_embed"].T)
+        return lm_logits(x, params["dec_embed"].T,
+                         norm=(params["dec_final_scale"], params["dec_final_bias"]))
 
     def forward(self, params, batch: dict, remat: str = "none"):
         """batch: src_embeds (B, S, D), dec_tokens (B, T)."""
@@ -182,29 +192,64 @@ class EncDecLM:
         }
 
     def decode_step(self, params, cache, cache_len, tokens):
-        x = params["dec_embed"][tokens].to(COMPUTE_DTYPE)
-        x = x + params["dec_pos"][cache_len].to(COMPUTE_DTYPE)[:, None, :]
+        x = maybe_region(lambda tok, cl, w: w["dec_embed"][tok].to(COMPUTE_DTYPE)
+                         + w["dec_pos"][cl].to(COMPUTE_DTYPE)[:, None, :],
+                         (tokens, cache_len), params, _EMBED_AXES, ("dec_embed", "dec_pos"),
+                         model_parallel=False)
         names = sorted(cache)
-        s_max = cache["self_k"].shape[2]
-        oh = F.one_hot(cache_len.long(), s_max)[:, :, None, None].to(COMPUTE_DTYPE)
+        axes, c_axes = self._axes("dec_layers"), self.cache_axes()
         new = {n: [] for n in names}
         for lp, *cache_l in zip(_unstack(params["dec_layers"]),
                                 *(torch.unbind(cache[n]) for n in names), strict=True):
             cache_l = dict(zip(names, cache_l, strict=True))
-            h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-            k, v = _kv(lp, "self_", h)
-            cache_l["self_k"] = cache_l["self_k"] + oh * k
-            cache_l["self_v"] = cache_l["self_v"] + oh * v
-            o = attention(_q(lp, "self_", h), cache_l["self_k"], cache_l["self_v"],
-                          causal=False, kv_len=cache_len + 1)
-            x = x + _out(lp, "self_", o)
-            h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-            o = attention(_q(lp, "cross_", h), cache_l["cross_k"], cache_l["cross_v"],
-                          causal=False)
-            x = x + _out(lp, "cross_", o)
-            h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
-            x = x + _mlp(lp, h)
+            x, k, v = maybe_region(
+                _dec_step, (x, cache_len, *(cache_l[n] for n in _CACHES)), lp, axes,
+                act_axes=(None, None, *(c_axes[n][1:] for n in _CACHES)),
+                out_axes=(None, 2, 3), model_parallel=False)
+            cache_l["self_k"], cache_l["self_v"] = k, v
             for n in names:
                 new[n].append(cache_l[n])
-        x = layer_norm(x, params["dec_final_scale"], params["dec_final_bias"])
-        return lm_logits(x, params["dec_embed"].T), {n: torch.stack(v) for n, v in new.items()}
+        logits = lm_logits(x, params["dec_embed"].T,
+                           norm=(params["dec_final_scale"], params["dec_final_bias"]))
+        return logits, {n: torch.stack(v) for n, v in new.items()}
+
+
+_CACHES = ("self_k", "self_v", "cross_k", "cross_v")
+_EMBED_AXES = {"enc_pos": (None, "embed"), "dec_pos": (None, "embed"),
+             "dec_embed": ("vocab", "embed")}
+_FINAL_AXES = {"enc_final_scale": ("embed",), "enc_final_bias": ("embed",)}
+
+
+def _enc_layer(x, lp):
+    h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    o = attention(_q(lp, "", h), *_kv(lp, "", h), causal=False)
+    x = x + _out(lp, "", o)
+    h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    return x + _mlp(lp, h)
+
+
+def _dec_layer(x, enc_out, lp):
+    h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    o = attention(_q(lp, "self_", h), *_kv(lp, "self_", h), causal=True)
+    x = x + _out(lp, "self_", o)
+    h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    o = attention(_q(lp, "cross_", h), *_kv(lp, "cross_", enc_out), causal=False)
+    x = x + _out(lp, "cross_", o)
+    h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
+    return x + _mlp(lp, h)
+
+
+def _dec_step(x, cache_len, self_k, self_v, cross_k, cross_v, lp):
+    """One decoder layer of a decode step: (x, new self_k, new self_v)."""
+    oh = F.one_hot(cache_len.long(), self_k.shape[1])[:, :, None, None].to(COMPUTE_DTYPE)
+    h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    k, v = _kv(lp, "self_", h)
+    self_k = self_k + oh * k
+    self_v = self_v + oh * v
+    o = attention(_q(lp, "self_", h), self_k, self_v, causal=False, kv_len=cache_len + 1)
+    x = x + _out(lp, "self_", o)
+    h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    o = attention(_q(lp, "cross_", h), cross_k, cross_v, causal=False)
+    x = x + _out(lp, "cross_", o)
+    h = layer_norm(x, lp["ln3_scale"], lp["ln3_bias"])
+    return x + _mlp(lp, h), self_k, self_v

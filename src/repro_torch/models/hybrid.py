@@ -11,6 +11,11 @@ Simplification vs the released checkpoints (the reference's): Zamba2
 concatenates the original embedding into the shared block input and adds
 per-invocation LoRA deltas; the shared block here runs on the hidden state
 directly.  The remat policy wraps the Mamba blocks, as the reference's does.
+
+Sharded (DTensor params), the Mamba blocks are ``ssm.mamba_block``'s
+regions and the shared block runs as one local region replicated over
+``model`` (its residual adds sit inside it), batch-sharded over the data
+axes.
 """
 
 from __future__ import annotations
@@ -19,14 +24,15 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..sharding.regions import maybe_region
 from .decoder import _maybe_remat, _proj_in, _proj_out, _unstack
 from .layers import COMPUTE_DTYPE, apply_rope, attention, embed, lm_logits, rms_norm, swiglu
-from .param import P
+from .param import P, param_axes
 from .ssm import mamba_block, mamba_cache, mamba_decode_block, mamba_layer_spec, ssm_dims
 
 
 class HybridLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, moe_groups: int = 1):
         if cfg.shared_attn_every <= 0:
             raise ValueError("shared_attn_every must be > 0")
         self.cfg = cfg
@@ -68,6 +74,22 @@ class HybridLM:
         return (i + 1) % every == 0 and (i + 1) // every <= self.n_groups
 
     def _shared_attn_block(self, sp, x, positions, cache=None, cache_len=None):
+        axes = param_axes(self.spec()["shared_attn"])
+        if cache is None:
+            return maybe_region(lambda h, pos, w: self._shared_attn_local(w, h, pos)[0],
+                                (x, positions), sp, axes, model_parallel=False), None
+        kv = ("batch", "kv_seq", "kv_heads", "kv_head_dim")
+
+        def step(h, pos, k, v, cl, w):
+            h, new = self._shared_attn_local(w, h, pos, {"k": k, "v": v}, cl)
+            return h, new["k"], new["v"]
+
+        x, k, v = maybe_region(step, (x, positions, cache["k"], cache["v"], cache_len), sp, axes,
+                               act_axes=(None, None, kv, kv, None), out_axes=(None, 2, 3),
+                               model_parallel=False)
+        return x, {"k": k, "v": v}
+
+    def _shared_attn_local(self, sp, x, positions, cache=None, cache_len=None):
         c = self.cfg
         h = rms_norm(x, sp["attn_norm"])
         q = apply_rope(_proj_in(h, sp["wq"]), positions, c.rope_theta)
@@ -100,8 +122,8 @@ class HybridLM:
             x = block(x, *(lp[n] for n in names))
             if self._attends_after(i):
                 x, _ = self._shared_attn_block(sp, x, positions)
-        x = rms_norm(x, params["final_norm"])
-        return lm_logits(x, params["lm_head"]), torch.zeros((), device=x.device)
+        logits = lm_logits(x, params["lm_head"], norm=(params["final_norm"],))
+        return logits, torch.zeros((), device=x.device)
 
     # ------------------------------------------------------------- decode
     def cache_axes(self) -> dict:
@@ -139,8 +161,7 @@ class HybridLM:
                                                cache_len=cache_len)
                 new["attn_k"].append(a["k"])
                 new["attn_v"].append(a["v"])
-        x = rms_norm(x, params["final_norm"])
+        logits = lm_logits(x, params["lm_head"], norm=(params["final_norm"],))
         # a config with no insertion (fewer layers than the cadence) keeps
         # its empty attention caches
-        return lm_logits(x, params["lm_head"]), {n: torch.stack(v) if v else cache[n]
-                                                 for n, v in new.items()}
+        return logits, {n: torch.stack(v) if v else cache[n] for n, v in new.items()}

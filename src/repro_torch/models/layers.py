@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from ..sharding.regions import maybe_region, model_rank
+
 COMPUTE_DTYPE = torch.bfloat16
 
 #: the reference's mask value: a fully masked row (``kv_len`` 0) softmaxes
@@ -165,8 +167,37 @@ def gelu_mlp(x: torch.Tensor, w_up, b_up, w_down, b_down) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens].to(COMPUTE_DTYPE)
+    """Sharded, a vocab-parallel lookup: each ``model`` rank reads the rows
+    it holds and zeros for the rest (a sum over ``model``; replicated where
+    the vocab does not divide)."""
+    vocab = table.shape[0]
+
+    def lookup(tok, w):
+        t = w["table"]
+        if t.shape[0] == vocab:
+            return t[tok].to(COMPUTE_DTYPE)
+        idx = tok - model_rank(table.device_mesh) * t.shape[0]
+        hit = (idx >= 0) & (idx < t.shape[0])
+        return (t[idx.clamp(0, t.shape[0] - 1)] * hit[..., None]).to(COMPUTE_DTYPE)
+
+    return maybe_region(lookup, (tokens,), {"table": table}, {"table": ("vocab", "embed")})
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+_HEAD_AXES = {"head": ("embed", "vocab"), "scale": ("embed",), "bias": ("embed",)}
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor, norm: tuple = ()) -> torch.Tensor:
+    """``x @ head``, after the final norm when ``norm`` holds its weights:
+    ``(scale,)`` an RMS norm, ``(scale, bias)`` a layer norm.  Sharded, the
+    norm and a vocab-parallel head are one region: logits (B, S, V) sharded
+    over ``model`` on V."""
+    b, s, _ = x.shape
+    return maybe_region(lambda h, w: _norm_head(h, w["head"], w.get("scale"), w.get("bias")),
+                        (x,), {"head": head, **dict(zip(("scale", "bias"), norm))}, _HEAD_AXES,
+                        out_axes=((("batch", None, "vocab"), (b, s, head.shape[1])),))
+
+
+def _norm_head(x, head, scale=None, bias=None):
+    if scale is not None:
+        x = rms_norm(x, scale) if bias is None else layer_norm(x, scale, bias)
     return x @ head.to(x.dtype)

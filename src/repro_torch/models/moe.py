@@ -14,8 +14,13 @@ one group function over it).  Within each group:
     5. combine: ``index_add`` of outputs * gate weights back to the tokens.
 
 DeepSeek-style shared experts (always-on) are supported via ``n_shared``.
-The reference's sharding constraints on the dispatch buffers only annotate
-a mesh; the port has none (ROADMAP item 6c).
+
+Sharded, the block runs as a local region (``DecoderLM._moe_block``):
+each data shard dispatches its own groups and each ``model`` rank runs the
+``expert_range=(lo, hi)`` it holds, the layout the reference's
+``CONSTRAIN_DISPATCH`` asks XLA for.  ``_constrain`` keeps the reference's
+three sites as identities: the region has already placed every tensor
+the block sees.
 
 Every index op here has a deterministic CUDA form (``index_select``,
 ``scatter``, ``scatter_add``, ``index_add``; no floating ``cumsum``), so a
@@ -30,6 +35,22 @@ from dataclasses import dataclass
 import torch
 
 from .layers import silu
+
+#: the reference's §Perf H2: constrain the grouped-dispatch tensors (group
+#: dim on the batch axes, expert dim on "model").  Off by default (baseline);
+#: kept by name for the hill-climb driver, and a no-op here (see ``_constrain``)
+CONSTRAIN_DISPATCH = False
+#: the reference's §Perf H6: constrain only the group-reshaped activations
+#: (G on the data axes).  Off by default (baseline); a no-op here
+CONSTRAIN_GROUPS_ONLY = False
+
+
+def _constrain(x, *parts, group_level: bool = False):
+    """The reference's constraint sites, kept by name: the identity.  The
+    block only ever sees local tensors (``DecoderLM._moe_block``'s region
+    already gives dispatch the layout the flags ask XLA for: groups on the
+    data axes, experts on ``model``), so neither flag changes anything."""
+    return x
 
 
 @dataclass(frozen=True)
@@ -99,8 +120,11 @@ def moe_group_forward(
     w_up: torch.Tensor,         # (E, D, F)
     w_down: torch.Tensor,       # (E, F, D)
     dims: MoEDims,
+    expert_range: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (G, T, D), aux (G,))."""
+    """Returns (out (G, T, D), aux (G,)).  With ``expert_range=(lo, hi)`` the
+    expert weights are those experts' only and ``out`` holds their share of
+    the combine (routing, capacity and aux are the full layer's)."""
     g, t, d = x.shape
     e, k = dims.n_experts, dims.top_k
     capacity = math.ceil(t * k / e * dims.capacity_factor)
@@ -110,7 +134,8 @@ def moe_group_forward(
     gates, experts, probs = router_topk(x, w_router, k)
     flat_experts = experts.reshape(g, t * k)                       # (G, T*k)
     slot_table, _ = _dispatch_indices(flat_experts, e, capacity)
-    slot_table = slot_table.reshape(g, e * capacity)
+    lo, hi = expert_range or (0, e)
+    slot_table = slot_table[:, lo:hi].reshape(g, (hi - lo) * capacity)
 
     token_of_assignment = torch.cat([
         torch.arange(t, device=dev).repeat_interleave(k),
@@ -124,13 +149,14 @@ def moe_group_forward(
     rows = (tok_idx + torch.arange(g, device=dev)[:, None] * (t + 1)).flatten()
 
     x_pad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1).reshape(g * (t + 1), d)
-    xs = x_pad.index_select(0, rows).reshape(g, e, capacity, d)
-    xs = xs.transpose(0, 1).reshape(e, g * capacity, d)           # experts lead
+    xs = x_pad.index_select(0, rows).reshape(g, hi - lo, capacity, d)
+    xs = xs.transpose(0, 1).reshape(hi - lo, g * capacity, d)     # experts lead
+    xs = _constrain(xs, "model", None, None)                      # experts on EP axis
 
     gg = torch.bmm(xs, w_gate.to(x.dtype))
     u = torch.bmm(xs, w_up.to(x.dtype))
     ys = torch.bmm(silu(gg) * u, w_down.to(x.dtype))              # (E, G*C, D)
-    ys = ys.reshape(e, g, capacity, d).transpose(0, 1).reshape(g * e * capacity, d)
+    ys = ys.reshape(hi - lo, g, capacity, d).transpose(0, 1).reshape(-1, d)
     ys = ys * gate_w.reshape(-1, 1).to(x.dtype)
 
     out = x.new_zeros((g * (t + 1), d)).index_add(0, rows, ys)
@@ -149,6 +175,7 @@ def moe_forward(
     x: torch.Tensor,            # (B, S, D)
     params: dict,               # router, gate, up, down [, shared_*]
     dims: MoEDims,
+    expert_range: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> (out, aux): the groups' mean aux loss."""
     b, s, d = x.shape
@@ -156,9 +183,10 @@ def moe_forward(
     tokens = b * s
     if tokens % g != 0:
         raise ValueError(f"token count {tokens} not divisible by group {g}")
+    xg = _constrain(x.reshape(g, tokens // g, d), "batch", None, None, group_level=True)
     out, aux = moe_group_forward(
-        x.reshape(g, tokens // g, d),
-        params["router"], params["gate"], params["up"], params["down"], dims)
+        xg, params["router"], params["gate"], params["up"], params["down"], dims, expert_range)
+    out = _constrain(out, "batch", None, None, group_level=True)
     out = out.reshape(b, s, d)
 
     if dims.n_shared:

@@ -19,7 +19,9 @@ FAMILIES = {
 }
 
 
-def build_model(cfg: ArchConfig):
+def build_model(cfg: ArchConfig, moe_groups: int = 1):
+    """``moe_groups``: the MoE layers' dispatch groups (the dry run sets the
+    data-parallel shard count); the other families take and ignore it."""
     if cfg.family not in FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
-    return FAMILIES[cfg.family](cfg)
+    return FAMILIES[cfg.family](cfg, moe_groups=moe_groups)

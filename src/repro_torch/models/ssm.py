@@ -3,6 +3,12 @@ L x Mamba2/SSD blocks -> head.
 
 Attention-free: the SSD chunk size takes the place of the attention tile
 as the tuned dimension.  Sub-quadratic -> runs long_500k.
+
+Sharded (DTensor params), each Mamba-2 mixer runs as a local region
+replicated over ``model`` (``in_proj`` packs z, x, B, C and dt on one
+``ssm_inner`` dim, which no split over ranks keeps whole), batch-sharded
+over the data axes, with the reference's hooks around it
+(``gather_layer_weights``, ``constrain_residual``).
 """
 
 from __future__ import annotations
@@ -10,10 +16,12 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
+from ..sharding.constrain import constrain_residual, gather_layer_weights, strip_layer_axis
+from ..sharding.regions import maybe_region
 from .decoder import _maybe_remat, _unstack
 from .layers import COMPUTE_DTYPE, embed, lm_logits, rms_norm
 from .mamba2 import SSMDims, mamba2_decode, mamba2_forward
-from .param import P
+from .param import P, param_axes
 
 
 def ssm_dims(cfg: ArchConfig) -> SSMDims:
@@ -45,18 +53,36 @@ def mamba_layer_spec(L: int, dims: SSMDims) -> dict:
     }
 
 
+def mamba_axes(dims: SSMDims) -> dict:
+    """One Mamba-2 layer's logical axes, the ``layers`` dim stripped."""
+    return strip_layer_axis(param_axes(mamba_layer_spec(1, dims)))
+
+
 def mamba_block(dims: SSMDims, names: list[str]):
     """The residual Mamba-2 block over one layer's leaves, given in
     ``names`` order (the form ``_maybe_remat`` wraps)."""
+    axes = mamba_axes(dims)
+
     def block(x, *leaves):
-        lp = dict(zip(names, leaves, strict=True))
-        return x + mamba2_forward(rms_norm(x, lp["pre_norm"]), lp, dims)
+        lp = gather_layer_weights(dict(zip(names, leaves, strict=True)), axes)
+        out = maybe_region(lambda h, w: mamba2_forward(rms_norm(h, w["pre_norm"]), w, dims),
+                           (x,), lp, axes, model_parallel=False)
+        return constrain_residual(x + out)
     return block
 
 
+_CACHE_AXES = {"conv": ("batch", None, "ssm_inner"), "ssm": ("batch", "heads", None, None)}
+
+
 def mamba_decode_block(dims: SSMDims, lp: dict, x, cache_l: dict):
-    out, new_cache = mamba2_decode(rms_norm(x, lp["pre_norm"]), lp, dims, cache_l)
-    return x + out, new_cache
+    def step(x, conv, ssm, w):
+        out, new = mamba2_decode(rms_norm(x, w["pre_norm"]), w, dims, {"conv": conv, "ssm": ssm})
+        return x + out, new["conv"], new["ssm"]
+
+    x, conv, ssm = maybe_region(step, (x, cache_l["conv"], cache_l["ssm"]), lp, mamba_axes(dims),
+                                act_axes=(None, _CACHE_AXES["conv"], _CACHE_AXES["ssm"]),
+                                out_axes=(None, 1, 2), model_parallel=False)
+    return x, {"conv": conv, "ssm": ssm}
 
 
 def mamba_cache(dims: SSMDims, L: int, batch: int, device) -> dict:
@@ -69,7 +95,7 @@ def mamba_cache(dims: SSMDims, L: int, batch: int, device) -> dict:
 
 
 class SSMLM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, moe_groups: int = 1):
         self.cfg = cfg
         self.dims = ssm_dims(cfg)
 
@@ -88,8 +114,8 @@ class SSMLM:
         block = _maybe_remat(mamba_block(self.dims, names), remat)
         for lp in _unstack(params["layers"]):
             x = block(x, *(lp[n] for n in names))
-        x = rms_norm(x, params["final_norm"])
-        return lm_logits(x, params["lm_head"]), torch.zeros((), device=x.device)
+        logits = lm_logits(x, params["lm_head"], norm=(params["final_norm"],))
+        return logits, torch.zeros((), device=x.device)
 
     def cache_axes(self) -> dict:
         return {
@@ -108,6 +134,5 @@ class SSMLM:
             x, new = mamba_decode_block(self.dims, lp, x, {"conv": conv, "ssm": ssm})
             convs.append(new["conv"])
             ssms.append(new["ssm"])
-        x = rms_norm(x, params["final_norm"])
-        return lm_logits(x, params["lm_head"]), {"conv": torch.stack(convs),
-                                                  "ssm": torch.stack(ssms)}
+        logits = lm_logits(x, params["lm_head"], norm=(params["final_norm"],))
+        return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}

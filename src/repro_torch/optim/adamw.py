@@ -29,7 +29,8 @@ class AdamWConfig:
 
 
 def init_state(params) -> dict:
-    zeros = lambda t: tree_map(lambda p: torch.zeros(p.shape, device=p.device), t)
+    # zeros_like: a sharded (DTensor) param gets sharded moments
+    zeros = lambda t: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), t)
     device = tree_leaves(params)[0].device
     return {"m": zeros(params), "v": zeros(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

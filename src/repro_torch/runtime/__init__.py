@@ -1,3 +1,4 @@
+from .elastic import degraded_mesh, reshard
 from .fault_tolerance import (
     InjectedFailure,
     RunnerConfig,
@@ -12,4 +13,6 @@ __all__ = [
     "RunnerReport",
     "StragglerEvent",
     "TrainingRunner",
+    "degraded_mesh",
+    "reshard",
 ]

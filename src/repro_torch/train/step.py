@@ -21,6 +21,8 @@ from dataclasses import dataclass
 import torch
 
 from ..optim.adamw import AdamWConfig, apply_updates, init_state
+from ..sharding.regions import is_dtensor, local_region, model_rank
+from ..sharding.rules import PartitionSpec, ShardingRules, mesh_shape, placements_for
 from ..tree import tree_from_paths, tree_leaves, tree_map, tree_paths
 
 
@@ -37,10 +39,43 @@ class TrainSettings:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL in fp32.  logits (B, S, V), labels (B, S) integers."""
+    if is_dtensor(logits):
+        return _sharded_cross_entropy(logits, labels)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     picked = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     return (lse - picked).mean()
+
+
+def _sharded_cross_entropy(logits, labels):
+    """Vocab-parallel NLL on logits sharded over ``model`` on V: each rank
+    takes the log-sum-exp of its vocab shard and the label logits it holds
+    (a local region); the ranks' parts are gathered (a few floats a token)
+    and combined, and the per-token losses gathered whole for the mean."""
+    from torch.distributed.tensor import Replicate
+
+    vocab, mesh = logits.shape[-1], logits.device_mesh
+    rules = ShardingRules()
+    lab_spec = rules.spec_for(("batch", None), tuple(labels.shape), mesh)
+    lf_spec = rules.spec_for(("batch", None, "vocab"), tuple(logits.shape), mesh)
+    n_parts = mesh_shape(mesh)["model"] if lf_spec[2] is not None else 1
+
+    def parts(lab, z):
+        z, idx = z.float(), lab.long()
+        if z.shape[-1] < vocab:
+            idx = idx - model_rank(mesh) * z.shape[-1]
+            hit = (idx >= 0) & (idx < z.shape[-1])
+            picked = torch.gather(z, -1, idx.clamp(0, z.shape[-1] - 1)[..., None])[..., 0] * hit
+        else:
+            picked = torch.gather(z, -1, idx[..., None])[..., 0]
+        return torch.stack([torch.logsumexp(z, dim=-1), picked], dim=-1)[..., None]
+
+    b, s = labels.shape
+    out_spec = rules.spec_for(("batch", None, None, "vocab"), (b, s, 2, n_parts), mesh)
+    p = local_region(parts, mesh, (labels, logits), (lab_spec, lf_spec), ((out_spec, ()),))
+    p = p.redistribute(mesh, placements_for(PartitionSpec(*out_spec[:3]), mesh))
+    nll = torch.logsumexp(p[:, :, 0], dim=-1) - p[:, :, 1].sum(-1)
+    return nll.redistribute(mesh, [Replicate()] * mesh.ndim).mean()
 
 
 def _cast_tree_bf16(params):
@@ -67,11 +102,11 @@ def init_train_state(model, params) -> dict:
     return {"params": params, "opt": init_state(params)}
 
 
-def make_train_step(model, settings: TrainSettings, grad_shardings=None):
-    """``grad_shardings`` constrains gradients to the parameter shardings in
-    the reference; the port has no sharding until ROADMAP item 6c."""
-    if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings needs sharding/ (ROADMAP item 6c)")
+def make_grad_fn(model, settings: TrainSettings, grad_shardings=None):
+    """(params, batch) -> (grads, loss, aux).  ``grad_shardings`` (a tree of
+    ``sharding.rules.NamedSharding`` matching the params) redistributes each
+    gradient to its parameter's placements: the counterpart of the
+    reference's ``with_sharding_constraint`` on the gradients."""
     loss_fn = make_loss_fn(model, settings)
 
     def grad_fn(params, batch):
@@ -80,7 +115,18 @@ def make_train_step(model, settings: TrainSettings, grad_shardings=None):
         # a leaf the loss never reads (a hybrid's shared block below its
         # cadence) gets a zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(total, list(flat.values()), materialize_grads=True)
-        return tree_from_paths(dict(zip(flat, grads, strict=True))), loss.detach(), aux.detach()
+        grads = tree_from_paths(dict(zip(flat, grads, strict=True)))
+        if grad_shardings is not None:
+            grads = tree_map(lambda g, sh: g.redistribute(sh.mesh, sh.placements),
+                             grads, grad_shardings)
+        return grads, loss.detach(), aux.detach()
+
+    return grad_fn
+
+
+def make_train_step(model, settings: TrainSettings, grad_shardings=None):
+    """``grad_shardings``: see :func:`make_grad_fn`."""
+    grad_fn = make_grad_fn(model, settings, grad_shardings)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -90,7 +136,7 @@ def make_train_step(model, settings: TrainSettings, grad_shardings=None):
             a = settings.accum
             mbs = [tree_map(lambda t, i=i: t.reshape((a, t.shape[0] // a) + t.shape[1:])[i],
                             batch) for i in range(a)]
-            grads = tree_map(lambda p: torch.zeros(p.shape, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = aux = torch.zeros((), device=tree_leaves(params)[0].device)
             for mb in mbs:
                 g, mb_loss, mb_aux = grad_fn(params, mb)
@@ -100,7 +146,9 @@ def make_train_step(model, settings: TrainSettings, grad_shardings=None):
             loss, aux = loss / a, aux / a
 
         new_params, new_opt, om = apply_updates(params, grads, state["opt"], settings.optimizer)
-        metrics = {"loss": loss, "aux": aux, **om}
+        # sharded scalars come back whole, as plain tensors
+        metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                   for k, v in {"loss": loss, "aux": aux, **om}.items()}
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step

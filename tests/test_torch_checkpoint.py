@@ -230,9 +230,13 @@ def test_cli_trains_every_family_in_process(arch, tmp_path, capsys):
     assert latest_step(str(tmp_path / "ckpt")) == 3
 
 
-def test_cli_refuses_what_one_card_cannot_do(monkeypatch):
-    with pytest.raises(NotImplementedError, match="6c"):
-        launch_train.main(["--arch", "yi-34b", "--reduced", "--model-parallel", "2"])
+def test_cli_refuses_what_one_card_cannot_do(monkeypatch, tmp_path, capsys):
+    # --model-parallel above the world is clamped to it, as the reference's
+    # host mesh clamps it: one process trains on a (1, 1) mesh
+    launch_train.main(["--arch", "yi-34b", "--reduced", "--model-parallel", "2", "--steps", "1",
+                       "--batch", "2", "--seq", "16", "--device", "cpu",
+                       "--ckpt", str(tmp_path / "ckpt")])
+    assert "mesh=(1, 1)" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         launch_train.main(["--arch", "yi-34b", "--reduced"])

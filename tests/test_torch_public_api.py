@@ -3,7 +3,7 @@ trees (an AST walk: nothing of either package is imported for it).
 
 * every reference module has a counterpart at the same path under
   ``src/repro_torch/``, or one named in ``COUNTERPARTS``, or is listed in
-  ``NOT_YET_PORTED`` (the modules ROADMAP Queue 1 items 2 and 4 port);
+  ``NOT_YET_PORTED`` (the module ROADMAP Queue 1 item 4 ports);
 * each pair of modules (every subpackage's ``__init__`` among them) has the
   same ``__all__``, but for the reference's names in ``ALL_GAPS`` and the
   port's in ``PORT_EXTRAS``;
@@ -31,13 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_ROOT = os.path.join(REPO, "src", "repro")
 PORT_ROOT = os.path.join(REPO, "src", "repro_torch")
 
-#: reference modules that ROADMAP Queue 1 item 2 (sharding and the launch
-#: tools, 6c) and item 4 (the compile cache) will port
+#: reference modules that ROADMAP Queue 1 item 4 (the compile cache) will port
 NOT_YET_PORTED = frozenset({
-    "launch/dryrun.py", "launch/hlo_analysis.py", "launch/mesh.py",
-    "launch/roofline.py", "launch/specs.py",
-    "sharding/__init__.py", "sharding/constrain.py", "sharding/rules.py",
-    "runtime/elastic.py",
     "pallas_bench/compile_cache.py",
 })
 
@@ -56,8 +51,10 @@ COUNTERPARTS = {
 
 #: reference names a ported module deliberately lacks
 NAME_GAPS = {
-    # 6c (ROADMAP Queue 1 item 2)
-    "models/moe.py": {"CONSTRAIN_DISPATCH", "CONSTRAIN_GROUPS_ONLY"},
+    # the reference parses XLA's HLO text into computations and their while
+    # trip counts; the port counts the ops one rank runs, so it has no HLO,
+    # no computations and no loops to correct for
+    "launch/hlo_analysis.py": {"Computation", "parse_computations", "computation_multipliers"},
     # Pallas interpret mode has no CUDA counterpart
     "kernels/common.py": {"use_interpret"},
     # a jax.tree helper; the port's trees are nested dicts (tree.py)
@@ -67,9 +64,7 @@ NAME_GAPS = {
 }
 
 #: reference ``__all__`` names a ported package deliberately lacks
-ALL_GAPS = {
-    "runtime/__init__.py": {"degraded_mesh", "reshard"},
-}
+ALL_GAPS: dict = {}
 
 #: names the port's ``__all__`` adds to the reference's
 PORT_EXTRAS = {
