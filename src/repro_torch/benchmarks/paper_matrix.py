@@ -30,8 +30,11 @@ on or off.  ``--serve-dir`` folds each combo's winners into a serving store.
 
 The card is the default device; ``--device cpu`` runs the kernels' plain
 versions on the CPU (``--backend cuda`` only), and a host with no card
-raises otherwise.  ``--pipeline-workers`` and ``--compile-cache`` are
-parsed and refused: no port backend has a compile pipeline.
+raises otherwise.  ``--pipeline-workers N`` prefetches each batch's
+per-geometry warm-up on N pool threads, and ``--compile-cache DIR`` shares
+each geometry's compile outcome across worker processes and runs (a warm
+re-run fills nothing); both apply to ``--backend cuda`` only, and results
+are identical either way.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.benchmarks.paper_matrix --design smoke \\
@@ -210,7 +213,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="worker count for parallel executors (units fan "
                          "out, including within-cell splits of big-E rows)")
     ap.add_argument("--pipeline-workers", type=int, default=None,
-                    help="refused: no port backend has a compile pipeline")
+                    help="compile-prefetch pool threads for the staged "
+                         "cuda measurement pipeline (0/omitted: inline "
+                         "compile-then-time; results are identical either "
+                         "way)")
     ap.add_argument("--scheduler", choices=("steal", "static"),
                     default="steal",
                     help="how parallel executors hand units to workers: "
@@ -219,7 +225,10 @@ def main(argv: list[str] | None = None) -> int:
                          "is the one-partition-per-worker schedule (results "
                          "are bit-identical either way)")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="refused: no port backend has a compile stage")
+                    help="persistent on-disk compile cache for the staged "
+                         "cuda backend, shared across worker processes and "
+                         "across runs (a warm re-run fills nothing, even "
+                         "from a cold process)")
     ap.add_argument("--resume", action="store_true",
                     help="replay units journaled in the measurement store "
                          "by an interrupted run (zero re-measurements)")

@@ -612,10 +612,13 @@ class TuningSession:
         picks how parallel executors hand units to workers: ``"steal"``
         (default) over-splits cells by predicted duration and lets workers
         pull units from a shared queue; ``"static"`` is the
-        one-partition-per-worker schedule.  ``pipeline_workers`` and
-        ``compile_cache`` are the reference's speed knobs for staged
-        backends (``Backend.pipeline``); no port backend has them yet, so
-        they raise ``ValueError``.
+        one-partition-per-worker schedule.  ``pipeline_workers=N`` enables
+        the staged backend's compile-prefetch pipeline and
+        ``compile_cache=DIR`` points it at a persistent cross-process
+        compile cache (backends with ``Backend.pipeline``: ``cuda``; others
+        raise ``ValueError``).  Both change how fast measurements happen,
+        never what they are, and stay out of cache keys and journal
+        namespaces.
         """
         with self.telemetry.span("matrix", cache_key=self.cache_key):
             return self._run_matrix_impl(
@@ -653,8 +656,7 @@ class TuningSession:
                 raise ValueError(
                     f"backend {self.spec.backend!r} has no compile pipeline; "
                     "pipeline_workers applies to staged backends only "
-                    "(BACKENDS[...].pipeline; not ported yet, ROADMAP.md "
-                    "Queue 1 item 4)"
+                    "(BACKENDS[...].pipeline)"
                 )
             self.spec = self.spec.replace(
                 backend_kwargs={
@@ -667,8 +669,7 @@ class TuningSession:
                 raise ValueError(
                     f"backend {self.spec.backend!r} has no compile stage; "
                     "compile_cache applies to staged backends only "
-                    "(BACKENDS[...].pipeline; not ported yet, ROADMAP.md "
-                    "Queue 1 item 4)"
+                    "(BACKENDS[...].pipeline)"
                 )
             self.spec = self.spec.replace(
                 backend_kwargs={

@@ -46,8 +46,9 @@ class Backend:
     ``serializable`` marks whether specs using this backend can round-trip
     through JSON and so be rebuilt in a parallel executor's workers.
     ``pipeline`` marks whether ``make`` accepts ``pipeline_workers=`` and
-    ``compile_cache=`` (no port backend does yet); the session refuses the
-    knobs on backends without it.
+    ``compile_cache=`` (the staged compile-prefetch pipeline and the
+    persistent compile cache: ``cuda``); the session refuses the knobs on
+    backends without it.
     """
 
     name: str
@@ -123,6 +124,8 @@ def _make_cuda(
     repeats: int = 5,
     warmup: int = 1,
     device: str = "cuda",
+    pipeline_workers: int = 0,
+    compile_cache: str | None = None,
 ) -> BaseMeasurement:
     # lazy import: core stays importable without the kernel packages
     from ..cuda_bench import DEFAULT_X, DEFAULT_Y, CudaMeasurement, make_workload
@@ -133,7 +136,8 @@ def _make_cuda(
         y=y if y is not None else DEFAULT_Y,
         input_seed=input_seed,
     )
-    return CudaMeasurement(workload, repeats=repeats, warmup=warmup, device=device)
+    return CudaMeasurement(workload, repeats=repeats, warmup=warmup, device=device,
+                           pipeline_workers=pipeline_workers, compile_cache=compile_cache)
 
 
 def _cuda_space(kernel: str = "add", **kwargs) -> SearchSpace:
@@ -216,7 +220,9 @@ register_backend(
         true_optimum=_costmodel_optimum,
     )
 )
-register_backend(Backend(name="cuda", make=_make_cuda, default_space=_cuda_space))
+register_backend(
+    Backend(name="cuda", make=_make_cuda, default_space=_cuda_space, pipeline=True)
+)
 register_backend(Backend(name="timing", make=_make_timing, serializable=False))
 register_backend(Backend(name="callable", make=_make_callable, serializable=False))
 register_backend(Backend(name="cached", make=_make_cached))

@@ -311,7 +311,7 @@ def test_device_executor_warns_and_caps(tmp_path, two_cpu_devices):
 # ------------------------------------------------------- degrade + errors
 
 
-def test_executor_registry_and_argument_errors():
+def test_executor_registry_and_argument_errors(tmp_path):
     assert {"serial", "process", "futures", "device"} <= set(EXECUTORS)
     assert repro_torch.EXECUTORS is EXECUTORS
     with pytest.raises(KeyError, match="unknown executor"):
@@ -325,12 +325,25 @@ def test_executor_registry_and_argument_errors():
         session.run_matrix(executor="process", futures_pool=ThreadPoolExecutor(max_workers=2))
     with pytest.raises(ValueError, match="max_workers"):
         session.run_matrix(max_workers=0)
-    # the reference's speed knobs: no port backend has a compile pipeline
-    for spec in (SPEC, SPEC.replace(backend="cuda", backend_kwargs={"device": "cpu"})):
-        with pytest.raises(ValueError, match="pipeline_workers"):
-            TuningSession(spec).run_matrix(pipeline_workers=2)
-        with pytest.raises(ValueError, match="compile_cache"):
-            TuningSession(spec).run_matrix(compile_cache="cache")
+    # the reference's speed knobs: refused off the staged backend, as the
+    # reference refuses them; the cuda backend takes both
+    with pytest.raises(ValueError, match="pipeline_workers"):
+        TuningSession(SPEC).run_matrix(pipeline_workers=2)
+    with pytest.raises(ValueError, match="compile_cache"):
+        TuningSession(SPEC).run_matrix(compile_cache="cache")
+    cuda = SPEC.replace(backend="cuda", algorithms=("rs",), dataset_size=None,
+                        backend_kwargs={"device": "cpu", "x": 64, "y": 128, "repeats": 1},
+                        design=ExperimentDesign(sample_sizes=(3,), n_experiments=(1,),
+                                                final_repeats=1))
+    plain = TuningSession(cuda).run_matrix()
+    for knobs in ({"pipeline_workers": 2},
+                  {"compile_cache": str(tmp_path / "cache")},
+                  {"pipeline_workers": 2, "compile_cache": str(tmp_path / "cache")}):
+        session = TuningSession(cuda)
+        res = session.run_matrix(**knobs)
+        assert set(res.cells) == set(plain.cells), knobs
+        assert all(np.isfinite(c.final_values).all() for c in res.cells.values()), knobs
+        assert session.cache_key == TuningSession(cuda).cache_key
     with pytest.raises(ValueError, match="design"):
         TuningSession(SPEC.replace(design=None)).run_matrix()
 

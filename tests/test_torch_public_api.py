@@ -2,15 +2,16 @@
 trees (an AST walk: nothing of either package is imported for it).
 
 * every reference module has a counterpart at the same path under
-  ``src/repro_torch/``, or one named in ``COUNTERPARTS``, or is listed in
-  ``NOT_YET_PORTED`` (the module ROADMAP Queue 1 item 4 ports);
+  ``src/repro_torch/``, or one named in ``COUNTERPARTS`` or ``RENAMED``, or
+  is listed in ``NOT_YET_PORTED`` (empty: every module is ported);
 * each pair of modules (every subpackage's ``__init__`` among them) has the
   same ``__all__``, but for the reference's names in ``ALL_GAPS`` and the
   port's in ``PORT_EXTRAS``;
 * each module at the same path defines (``def``, ``class`` or module-level
   assignment) every public name the reference's defines, but for those in
-  ``NAME_GAPS``; the same holds for the reference's drivers against the
-  port's (``DRIVERS``);
+  ``NAME_GAPS``; the same holds, with the same ``__all__``, for each module
+  ported under another path (``RENAMED``), and for the reference's drivers
+  against the port's (``DRIVERS``);
 * the port's ``__all__`` names resolve, and ``repro_torch.core`` exports
   ``Config`` and the ``Measurement`` protocol with the reference's methods.
 
@@ -31,10 +32,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_ROOT = os.path.join(REPO, "src", "repro")
 PORT_ROOT = os.path.join(REPO, "src", "repro_torch")
 
-#: reference modules that ROADMAP Queue 1 item 4 (the compile cache) will port
-NOT_YET_PORTED = frozenset({
-    "pallas_bench/compile_cache.py",
-})
+#: reference modules with no counterpart yet
+NOT_YET_PORTED: frozenset = frozenset()
+
+#: reference modules ported under another path whose names are compared
+#: name by name (the Pallas benchmark package is ``cuda_bench``)
+RENAMED = {
+    "pallas_bench/compile_cache.py": "cuda_bench/compile_cache.py",
+}
 
 #: reference modules ported under another path (Pallas kernels are CUDA
 #: sources; the Pallas benchmark backend is the CUDA one); their names are
@@ -93,6 +98,9 @@ DRIVERS = {
     "examples/quickstart.py": ("examples/quickstart.py", set()),
     "examples/tune_kernel_interpret.py": ("examples/tune_kernel.py", set()),
     "examples/train_lm.py": ("examples/train_lm.py", set()),
+    "benchmarks/hillclimb.py": ("benchmarks/hillclimb.py", set()),
+    "benchmarks/make_experiments_md.py": ("benchmarks/make_experiments_md.py", set()),
+    "examples/tune_sharding.py": ("examples/tune_sharding.py", set()),
 }
 
 
@@ -134,8 +142,9 @@ PACKAGES = sorted(m for m in SHARED if m.endswith("__init__.py"))
 
 def test_every_reference_module_is_ported_or_listed():
     missing = REF_MODULES - PORT_MODULES
-    assert missing == NOT_YET_PORTED | set(COUNTERPARTS)
-    for ref_path, port_path in COUNTERPARTS.items():
+    assert missing == NOT_YET_PORTED | set(COUNTERPARTS) | set(RENAMED)
+    assert not NOT_YET_PORTED
+    for ref_path, port_path in {**COUNTERPARTS, **RENAMED}.items():
         assert os.path.exists(os.path.join(PORT_ROOT, port_path)), (ref_path, port_path)
     # the gap lists name only modules that exist on both sides
     assert set(NAME_GAPS) | set(ALL_GAPS) | set(PORT_EXTRAS) <= set(SHARED)
@@ -158,6 +167,14 @@ def test_all_equals_the_reference(module):
     ref, ours = ref or set(), ours or set()
     assert ref - ours == ALL_GAPS.get(module, set())
     assert ours - ref == PORT_EXTRAS.get(module, set())
+
+
+@pytest.mark.parametrize("module", sorted(RENAMED))
+def test_renamed_module_defines_the_reference_names_and_all(module):
+    ref, ref_all = public_names(os.path.join(REF_ROOT, module))
+    ours, our_all = public_names(os.path.join(PORT_ROOT, RENAMED[module]))
+    assert ref - ours == set()
+    assert ref_all is not None and our_all == ref_all
 
 
 @pytest.mark.parametrize("package", PACKAGES)
