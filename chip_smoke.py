@@ -602,9 +602,9 @@ def timed_materialize():
     orig = CudaWorkload.materialize
     stats = {"n": 0, "s": 0.0}
 
-    def materialize(self, device):
+    def materialize(self, device, timings=None):
         t0 = time.perf_counter()
-        out = orig(self, device)
+        out = orig(self, device, timings)
         torch.cuda.synchronize()
         stats["n"] += 1
         stats["s"] += time.perf_counter() - t0
@@ -686,12 +686,14 @@ def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
 
 
 def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
-    """A cold run's trace against the run: each stage's trace total beside
-    the units' summed ``stage_s`` (read back from the unit journal), which
-    must agree to 1e-6 s; the completed units and experiments against the
-    plan; the trace's command line in a process of its own."""
+    """A cold run's trace against the run: each measurement stage's trace
+    total beside the units' summed ``stage_s`` (read back from the unit
+    journal), which must agree to 1e-6 s, and the trace-only host stages
+    (the searchers' ``propose``); the completed units and experiments
+    against the plan; the trace's command line in a process of its own."""
     from repro_torch import TuningSession, build_units
     from repro_torch.telemetry import read_run, stage_percentiles, summarize
+    from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
 
     events = read_run(run_dir)
     plans = [e for e in events if e.get("ev") == "plan"]
@@ -708,7 +710,9 @@ def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
             stage_s[k] = stage_s.get(k, 0.0) + v
     if hasattr(session.store, "close"):
         session.store.close()
-    totals = {k: v["total_s"] for k, v in stage_percentiles(events).items()}
+    every = {k: v["total_s"] for k, v in stage_percentiles(events).items()}
+    totals = {k: v for k, v in every.items() if k not in HOST_STAGES}
+    host = {k: v for k, v in every.items() if k in HOST_STAGES}
     diff = {k: abs(totals.get(k, 0.0) - stage_s.get(k, 0.0)) for k in set(totals) | set(stage_s)}
     summary = summarize(run_dir)
     counters = summary["counters"]
@@ -716,13 +720,14 @@ def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
     cli = subprocess.run([sys.executable, "-m", "repro_torch.telemetry", run_dir],
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    print(f"trace {label}: events={summary['n_events']} stage_total_s={totals} "
+    print(f"trace {label}: events={summary['n_events']} stage_total_s={totals} host_s={host} "
           f"units_stage_s={stage_s} max_abs_diff_s={max(diff.values())!r} "
           f"units_completed={counters.get('units_completed')}/{plans[0]['units_total']} "
           f"experiments_completed={counters.get('experiments_completed')}/{n_exp} "
           f"compiles={counters.get('compiles')} store_misses={counters.get('store_misses')} "
           f"invalid={summary['invalid']} cli_exit={cli.returncode}")
-    require(set(totals) == {"screen", "compile", "time", "record"}, f"trace stages {totals}")
+    require(set(totals) == set(PIPELINE_STAGES), f"trace stages {totals}")
+    require(set(host) == {"propose"}, f"trace host stages {host}")
     require(max(diff.values()) <= 1e-6, f"trace stage totals differ from stage_s by {diff}")
     require(plans[0]["units_total"] == len(units) == counters.get("units_completed"),
             f"trace: units planned {plans[0]['units_total']}, built {len(units)}, "

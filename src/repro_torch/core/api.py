@@ -527,21 +527,32 @@ class TuningSession:
 
     # -- single run -----------------------------------------------------------
     def run(self) -> TuningResult:
-        """One budgeted search + the paper's final re-measurement."""
+        """One budgeted search + the paper's final re-measurement.
+
+        With telemetry on, the session's own work is traced as two
+        ``session`` stage events (trace-only, charged to no stage clock):
+        ``part="setup"`` from entry to the search loop (the searcher, the
+        measurement), and ``part="record"`` from the final re-measurement's
+        end to the return (the store, the winners index, the record)."""
         spec = self.spec
         if spec.budget is None:
             raise ValueError("TuningSpec.budget is required for tune(); "
                              "use tune_matrix() for design-driven runs")
+        tel = self.telemetry
         t0 = monotonic()
         searcher = make_searcher(
             spec.searcher, self.space, seed=spec.seed, **spec.searcher_kwargs
         )
         measurement = self.measurement = self._make_measurement(spec.seed)
+        if tel.enabled:
+            tel.stage("session", monotonic() - t0, part="setup", algo=spec.searcher)
         result = drive(searcher, measurement, spec.budget,
-                       dispatch=spec.dispatch, telemetry=self.telemetry)
+                       dispatch=spec.dispatch, telemetry=tel)
         result.final_value = measurement.measure_final(
             result.best_config, spec.final_repeats
         )
+        if tel.enabled:
+            t1 = monotonic()
         self.save_store()
         self._record_winner()
         res = {
@@ -564,6 +575,8 @@ class TuningSession:
             provenance=_provenance(monotonic() - t0),
             extra=self._backend_extra(measurement),
         )
+        if tel.enabled:
+            tel.stage("session", monotonic() - t1, part="record", algo=spec.searcher)
         return result
 
     def _backend_extra(self, measurement: BaseMeasurement | None) -> dict:

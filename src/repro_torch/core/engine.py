@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 
 from ..telemetry.null import NULL_TELEMETRY
+from .clock import monotonic
 from .measurement import BaseMeasurement
 from .searchers.base import Searcher, TuningResult
 from .space import Config
@@ -40,14 +41,23 @@ def drive(
     one call; ``dispatch="one"`` measures config-by-config.  Both consume the
     same proposals in the same order.  ``telemetry`` (a
     :mod:`repro_torch.telemetry` sink; default no-op) wraps each ask/tell
-    iteration in a ``round`` span and counts the non-finite penalties told
-    to the searcher (``inf_penalties_told``) — observability only, the
-    loop's results are identical with or without it.
+    iteration in a ``round`` span, counts the non-finite penalties told
+    to the searcher (``inf_penalties_told``), and emits a ``propose``
+    stage event around ``start``, each ``tell`` (the searcher's next
+    proposal runs inside it) and ``finish``: the searcher's share of the
+    loop, with its ``algo`` and the searcher's own split (``fit_s`` /
+    ``acquire_s`` for ``bo_gp`` and ``rf``).  ``propose`` is trace-only,
+    charged to no stage clock.  Observability only: the loop's results are
+    identical with or without it, and without it the loop reads no clock.
     """
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}")
     tel = telemetry if telemetry is not None else NULL_TELEMETRY
+    traced = tel.enabled
+    t = monotonic() if traced else 0.0
     searcher.start(budget)
+    if traced:
+        _proposed(tel, searcher, t)
     rnd = 0
     while True:
         configs = searcher.ask()
@@ -60,13 +70,28 @@ def drive(
                 values = np.array(
                     [measurement.measure(c) for c in configs], dtype=np.float64
                 )
+            if traced:
+                t = monotonic()
             searcher.tell(configs, values)
-        if tel.enabled:
+            if traced:
+                _proposed(tel, searcher, t)
+        if traced:
             bad = int(len(values) - np.count_nonzero(np.isfinite(values)))
             if bad:
                 tel.inc("inf_penalties_told", bad)
         rnd += 1
-    return searcher.finish()
+    if traced:
+        t = monotonic()
+    result = searcher.finish()
+    if traced:
+        _proposed(tel, searcher, t)
+    return result
+
+
+def _proposed(tel, searcher: Searcher, t0: float) -> None:
+    """The ``propose`` stage event of one searcher step begun at ``t0``."""
+    tel.stage("propose", monotonic() - t0, algo=searcher.name,
+              **searcher.take_split())
 
 
 # ---------------------------------------------------------------- disk cache

@@ -31,6 +31,7 @@ from typing import Generator, Sequence
 
 import numpy as np
 
+from ..clock import monotonic
 from ..measurement import BaseMeasurement
 from ..space import Config, SearchSpace
 
@@ -95,12 +96,17 @@ class Searcher(ABC):
     #: whether this searcher receives the constrained space (paper: SMBO
     #: methods could not use constraint specification).
     uses_constraints: bool = True
+    #: the parts of its proposal steps a searcher times on itself (its
+    #: surrogate's ``fit_s`` and ``acquire_s``), reported by
+    #: :meth:`take_split`; trace attributes only, never a value, key or seed
+    SPLIT: tuple[str, ...] = ()
 
     def __init__(self, space: SearchSpace, seed: int = 0, **kwargs):
         self.space = space if self.uses_constraints else space.unconstrained()
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self._session = None
+        self._split = dict.fromkeys(self.SPLIT, 0.0)
 
     # -- ask/tell protocol ----------------------------------------------------
     def start(self, budget: int) -> TuningResult:
@@ -108,6 +114,7 @@ class Searcher(ABC):
         if budget < 1:
             raise ValueError("budget must be >= 1")
         result = TuningResult(algo=self.name, best_config={}, best_value=np.inf)
+        self._split = dict.fromkeys(self.SPLIT, 0.0)
         self._session = _Session(
             budget=budget,
             remaining=budget,
@@ -161,6 +168,19 @@ class Searcher(ABC):
             s.gen.close()
             return
         self._pull_next_batch(np.asarray(s.batch_values, dtype=np.float64))
+
+    def take_split(self) -> dict[str, float]:
+        """Seconds of each :attr:`SPLIT` part since the last call (``{}``
+        for a searcher that times nothing); starts the next count."""
+        split, self._split = self._split, dict.fromkeys(self.SPLIT, 0.0)
+        return split
+
+    def _lap(self, part: str, t0: float) -> float:
+        """Charge the seconds since the clock read ``t0`` to ``part`` of
+        the split; returns the new reading."""
+        t = monotonic()
+        self._split[part] += t - t0
+        return t
 
     @property
     def done(self) -> bool:

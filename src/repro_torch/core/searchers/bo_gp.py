@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..clock import monotonic
 from ..surrogates.gp import GaussianProcess, expected_improvement
 from .base import ProposalGen, Searcher, TuningResult, register
 
@@ -23,6 +24,7 @@ from .base import ProposalGen, Searcher, TuningResult, register
 class BOGPSearcher(Searcher):
     name = "bo_gp"
     uses_constraints = False  # paper: no constraint support in SMBO searches
+    SPLIT = ("fit_s", "acquire_s")
 
     def __init__(
         self,
@@ -102,9 +104,12 @@ class BOGPSearcher(Searcher):
             else:
                 gp.add(u, y[-1])
 
+        # fit_s: the GP's observe/fit; acquire_s: candidates, predict, EI
+        t = monotonic()
         for r, v in zip(init_idx, init_vals, strict=True):
             observe(r, v)
         seen_keys = self.space.flat_keys(init_idx).tolist()
+        t = self._lap("fit_s", t)
 
         for _ in range(budget - n_init):
             inc = X[int(np.argmin(y))]
@@ -116,7 +121,10 @@ class BOGPSearcher(Searcher):
             mu, sigma = gp.predict(self.space.to_unit(fresh))
             ei = expected_improvement(mu, sigma, best=float(np.min(y)))
             pick = fresh[int(np.argmax(ei))]
+            self._lap("acquire_s", t)
             raw = float((yield [self.space.decode(pick)])[0])
+            t = monotonic()
             X.append(pick)
             observe(pick, raw)
             seen_keys.append(int(self.space.flat_keys(pick[None, :])[0]))
+            t = self._lap("fit_s", t)

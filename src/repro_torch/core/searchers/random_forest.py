@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..clock import monotonic
 from ..surrogates.forest_batched import BatchedForest
 from .base import ProposalGen, Searcher, TuningResult, register
 
@@ -28,6 +29,7 @@ from .base import ProposalGen, Searcher, TuningResult, register
 class RandomForestSearcher(Searcher):
     name = "rf"
     uses_constraints = True
+    SPLIT = ("fit_s", "acquire_s")
 
     def __init__(
         self,
@@ -48,17 +50,21 @@ class RandomForestSearcher(Searcher):
         train_idx = self.space.sample_indices(self.rng, n_train)
         train_vals = yield self.space.decode_batch(train_idx)
 
+        # fit_s: the forest's fit; acquire_s: the pool's draw, predict, sort
+        t = monotonic()
         forest = BatchedForest(
             self.space.cardinalities,
             n_estimators=self.n_estimators,
             seed=int(self.rng.integers(0, 2**31)),
         )
         forest.fit(train_idx[None], np.asarray(train_vals)[None])
+        t = self._lap("fit_s", t)
 
         pool = self.space.sample_indices(self.rng, self.pool_size)
         preds = forest.predict(pool)[0]
         best = np.argsort(preds, kind="stable")[: top_k]
         pred_cfgs = self.space.decode_batch(pool[best])
+        self._lap("acquire_s", t)
         pred_vals = yield pred_cfgs
         # The RF result is the best of the top-k *predictions* actually run —
         # NOT the best training sample (the paper stores the top performing

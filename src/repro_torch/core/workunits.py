@@ -277,8 +277,9 @@ def merge_unit_results(
     the cell results plus per-cell cost breakdowns ``{"wall_s", "compile_s",
     "measure_s"}`` (the sum of unit walls — aggregate *search cost*,
     meaningful even when units ran in parallel; ``compile_s`` charges the
-    staged pipeline's screen + compile stages, ``measure_s`` its timing
-    stage — both 0.0 for unstaged backends).
+    staged pipeline's screen + inputs + compile stages (the reference's
+    screen + compile: it stages its inputs inside compile), ``measure_s``
+    its timing stage — both 0.0 for unstaged backends).
     """
     by_key: dict[str, UnitResult] = {}
     for r in results:
@@ -321,7 +322,8 @@ def merge_unit_results(
             "wall_s": float(sum(f.wall_s for f in frags)),
             "compile_s": float(
                 sum(
-                    f.stage_s.get("screen", 0.0) + f.stage_s.get("compile", 0.0)
+                    f.stage_s.get("screen", 0.0) + f.stage_s.get("inputs", 0.0)
+                    + f.stage_s.get("compile", 0.0)
                     for f in frags
                 )
             ),

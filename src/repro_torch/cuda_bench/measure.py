@@ -2,8 +2,8 @@
 ``repro.pallas_bench.measure.PallasMeasurement``).
 
 :class:`CudaMeasurement` is the objective function the tuning loop plugs
-into.  Measurement is a staged pipeline — **screen -> compile -> time ->
-record** — with each stage a method of its own and a
+into.  Measurement is a staged pipeline — **screen -> inputs -> compile ->
+time -> record** — with each stage a method of its own and a
 :class:`~repro_torch.core.measurement.StageClock` charging per-stage
 wall-clock into provenance:
 
@@ -11,6 +11,11 @@ wall-clock into provenance:
   geometries before any launch; failures become structured
   :class:`~repro_torch.cuda_bench.validity.InvalidMeasurement` penalties
   (``float("inf")`` through the ordinary ``tell`` path).
+* **inputs** — the workload's inputs drawn and copied to the device
+  (:meth:`~repro_torch.cuda_bench.workloads.CudaWorkload.materialize`,
+  waited for), once a measurement, on its first fill and before that
+  fill's compile stage opens; a workload without inputs stages an empty
+  tuple.
 * **compile** — one shared library serves every config (tile sizes, t_z,
   block counts are launch arguments), built once per checkout.  What the
   per-geometry cache holds is therefore a geometry's *warmed* runner: a
@@ -34,11 +39,12 @@ a thread pool, then the *timing phase* walks the batch strictly
 sequentially.  Here the compile stage is a geometry's first warmed launch,
 and no launch of the pool may fall inside a timed window: one device lock
 serialises every launch (the pool's warm launches, the persistent cache's
-served warm launches, the inputs' copy to the device) against every timed
-repeat, so what overlaps timing is only the host part of the compile stage
-(the persistent cache's get, claim and wait, and building the inputs).  A
-pool task launches on the measurement's device (torch's current device is
-per thread).  ``n_compiles`` is the same with the pipeline on or off.
+served warm launches, the inputs stage) against every timed repeat, so what
+overlaps timing is only the host part of the compile stage (the persistent
+cache's get, claim and wait).  A pool task stages the inputs, where they are
+not staged yet, before its compile stage opens, and launches on the
+measurement's device (torch's current device is per thread).
+``n_compiles`` is the same with the pipeline on or off.
 
 ``compile_cache`` (a :class:`~repro_torch.cuda_bench.compile_cache
 .CompileCache` or a directory) layers the persistent cross-process cache of
@@ -51,7 +57,8 @@ error raises and leaves the entry unwritten.
 
 With a telemetry sink attached (:meth:`BaseMeasurement.set_telemetry`),
 every stage also emits a ``stage`` trace event carrying the same duration
-its clock was charged, so a trace's per-stage totals equal ``stage_s``; the
+its clock was charged, so a trace's per-stage totals equal ``stage_s``
+(the ``inputs`` event also carries ``bytes``, ``draw_s`` and ``copy_s``); the
 ``compiles`` counter counts cache fills (as ``n_compiles`` does),
 ``invalid.<rule>`` counts penalties by validity rule (``align`` / ``block``
 / ``grid`` / ``smem``) or by failing stage (``compile`` / ``run``), and the
@@ -143,7 +150,8 @@ class CudaMeasurement(BaseMeasurement):
         self.warmup = int(warmup)
         self.pipeline_workers = int(pipeline_workers)
         self._timer = timer if timer is not None else monotonic
-        #: per-stage wall-clock (screen / compile / time / record), per run
+        #: per-stage wall-clock (screen / inputs / compile / time / record),
+        #: per run
         self.clock = StageClock()
         if isinstance(compile_cache, str):
             compile_cache = CompileCache(
@@ -266,21 +274,40 @@ class CudaMeasurement(BaseMeasurement):
         self._pcache_hit()
         return fn
 
-    def _compile_now(self, cfg: Config, gkey: tuple) -> Callable | InvalidMeasurement:
-        """Warm cfg's geometry and cache its runner.  Called from the timing
-        thread (inline path) or a prefetch pool thread; shared state mutates
-        under the cache lock, launches run under the device lock.
+    def _stage_inputs(self) -> tuple:
+        """The workload's inputs on the device: staged once a measurement, in
+        the ``inputs`` stage (draw, copy, and a wait for the copy), so the
+        compile stage holds warm launches alone.  With telemetry on, the
+        stage's event carries ``bytes`` (all inputs), ``draw_s`` and
+        ``copy_s``."""
+        with self._cache_lock:
+            if self._inputs is None:
+                with self._staged("inputs") as attrs, self._device_lock:
+                    timings = {} if self.telemetry.enabled else None
+                    inputs = self.workload.materialize(self.device, timings)
+                    for t in inputs:
+                        fence(t)
+                    if timings is not None:
+                        attrs.update(
+                            timings,
+                            bytes=sum(t.numel() * t.element_size() for t in inputs),
+                        )
+                self._inputs = inputs
+            return self._inputs
+
+    def _compile_now(
+        self, cfg: Config, gkey: tuple, inputs: tuple
+    ) -> Callable | InvalidMeasurement:
+        """Warm cfg's geometry on the staged ``inputs`` and cache its runner.
+        Called from the timing thread (inline path) or a prefetch pool
+        thread; shared state mutates under the cache lock, launches run
+        under the device lock.
 
         With a persistent cache attached, the order is: serve the on-disk
         entry (no fill counted) -> claim the key and fill -> or, when
         another process holds the claim, wait for its entry.  Claim holders
         publish ok entries, and invalid ones for a launch refused for its
         geometry, so every other process skips this geometry."""
-        with self._cache_lock:
-            if self._inputs is None:
-                with self._device_lock:
-                    self._inputs = self.workload.materialize(self.device)
-            inputs = self._inputs
         pc = self.pcache
         pckey = None
         claimed = False
@@ -341,10 +368,11 @@ class CudaMeasurement(BaseMeasurement):
         """Charge the stage clock AND (when telemetry is on) emit a ``stage``
         trace event with the same duration — one timing source for both, so
         the trace's per-stage totals reconcile exactly with ``stage_times``.
+        Yields the event's attributes, which the stage may add to.
         Thread-safe like the clock: prefetch pool threads use it too."""
         t0 = monotonic()
         try:
-            yield
+            yield attrs
         finally:
             dur = monotonic() - t0
             self.clock.add(name, dur)
@@ -380,8 +408,9 @@ class CudaMeasurement(BaseMeasurement):
             if self.telemetry.enabled:
                 self.telemetry.inc("compile_cache_hits")
             return hit
+        inputs = self._stage_inputs()
         with self._staged("compile", key=str(gkey)):
-            return self._compile_now(config, gkey)
+            return self._compile_now(config, gkey, inputs)
 
     def _stage_time(
         self, fn: Callable, repeats: int, key: str | None = None
@@ -469,8 +498,10 @@ class CudaMeasurement(BaseMeasurement):
                 self.telemetry.gauge("prefetch_inflight", depth)
 
     def _prefetch_task(self, cfg: Config, gkey: tuple):
-        with self._on_device(), self._staged("compile", key=str(gkey)):
-            return self._compile_now(cfg, gkey)
+        with self._on_device():
+            inputs = self._stage_inputs()
+            with self._staged("compile", key=str(gkey)):
+                return self._compile_now(cfg, gkey, inputs)
 
     def measure_batch(self, configs: Sequence[Config]) -> np.ndarray:
         """One Python-level dispatch per batch.  With ``pipeline_workers``

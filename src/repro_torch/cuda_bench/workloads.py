@@ -6,7 +6,9 @@ concrete image size and input seed.  Inputs are drawn exactly as the
 reference draws them — ``np.random.default_rng(stable_seed("pallas_inputs",
 name, x, y, input_seed))``, ``standard_normal``, cast to float32 — and only
 then become tensors, so :meth:`CudaWorkload.materialize` is byte-identical to
-the reference's for the same fields.
+the reference's for the same fields.  The measurement stages them in an
+``inputs`` stage of its own; ``materialize(device, timings)`` splits that
+stage into the numpy draw and the copy to the device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.clock import monotonic
+from ..core.measurement import fence
 from ..core.runner import stable_seed
 from ..kernels import KERNEL_BENCHES
 from ..kernels.common import Config, KernelBenchSpec
@@ -44,10 +48,23 @@ class CudaWorkload:
         seed = stable_seed("pallas_inputs", self.name, self.x, self.y, self.input_seed)
         return tuple(self.bench.make_inputs(self.x, self.y, seed))
 
-    def materialize(self, device) -> tuple[torch.Tensor, ...]:
+    def materialize(self, device, timings: dict | None = None) -> tuple[torch.Tensor, ...]:
         """The inputs as tensors on ``device`` (always named: a caller who
-        forgets it must not land on the CPU without a word)."""
-        return tuple(torch.from_numpy(a).to(device) for a in self.arrays())
+        forgets it must not land on the CPU without a word).
+
+        ``timings``, when given, receives ``draw_s`` (the numpy draw,
+        :meth:`arrays`) and ``copy_s`` (the copy to ``device``, waited for);
+        the tensors are the same either way."""
+        if timings is None:
+            return tuple(torch.from_numpy(a).to(device) for a in self.arrays())
+        t0 = monotonic()
+        arrays = self.arrays()
+        t1 = monotonic()
+        out = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        for t in out:
+            fence(t)
+        timings.update(draw_s=t1 - t0, copy_s=monotonic() - t1)
+        return out
 
     def run(self, inputs: tuple, cfg: Config, device):
         """Launch the kernel; returns its (possibly in-flight) output.  The

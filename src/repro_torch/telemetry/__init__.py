@@ -15,7 +15,13 @@ the report's Telemetry section.
 On the card a pipeline stage is timed around the CUDA kernel's launch and
 ``torch.cuda.synchronize()`` (``CudaMeasurement``); its ``stage`` events
 carry the exact duration its stage clock was charged, so per-stage trace
-totals reconcile with the units' ``stage_s``.
+totals reconcile with the units' ``stage_s``.  The port traces more stages
+than the reference: ``inputs`` (the inputs' draw and copy, split out of
+``compile``) among the measurement's, and the trace-only host stages
+``propose`` (the searcher's steps in the engine's ``drive``) and
+``session`` (``TuningSession.run``'s own work) — see
+:data:`.events.HOST_STAGES`.  Every event is stamped on the
+``repro_torch.core.clock`` seam, ``time.perf_counter`` by default.
 
 Telemetry is a pure observability knob — never part of cache keys, journal
 namespaces, or spec fingerprints — and a telemetry-enabled run produces

@@ -26,12 +26,16 @@ Event types:
                      several workers); consumers derive them by grouping
                      unit spans, and the parent emits aggregate ``cell``
                      events at merge time.
-``stage``            a completed pipeline-stage interval (screen / compile /
-                     time / record) with ``dur`` and an optional config
-                     ``key`` — the high-frequency complete-span form.  Its
-                     ``dur`` is the exact duration the stage clock was
-                     charged (not rounded), so per-stage trace totals
-                     reconcile with ``stage_s``.
+``stage``            a completed stage interval with ``dur`` — the
+                     high-frequency complete-span form.  A measurement
+                     stage (:data:`PIPELINE_STAGES`) carries an optional
+                     config ``key``, and its ``dur`` is the exact duration
+                     the stage clock was charged (not rounded), so
+                     per-stage trace totals reconcile with ``stage_s``.
+                     A host stage (:data:`HOST_STAGES`) is trace-only: no
+                     ``stage_s`` counterpart.  Every stage interval
+                     (``t - dur``, ``t``) of one writer's thread is
+                     disjoint from the others.
 ``plan``             emitted once by the parent when the unit plan is fixed:
                      ``units`` (keys), ``units_total``,
                      ``experiments_total``, and on resume
@@ -57,7 +61,19 @@ SHARD_RE = re.compile(r"^trace\.shard(\d+)\.jsonl$")
 #: events are the innermost level in complete-span form)
 SPAN_LEVELS = ("matrix", "cell", "unit", "round", "experiment", "stage")
 
-PIPELINE_STAGES = ("screen", "compile", "time", "record")
+#: the measurement's stages, each charged to its stage clock (``stage_s``).
+#: ``inputs`` (the workload's inputs drawn and copied to the card, once a
+#: measurement, with ``bytes``, ``draw_s`` and ``copy_s``) is the port's:
+#: the reference stages its inputs inside ``compile``
+PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
+
+#: the port's host stages, trace-only (no ``stage_s`` counterpart):
+#: ``propose`` — the searcher's ``start``, each ``tell`` (its next proposal)
+#: and ``finish`` in the engine's ``drive``, with ``algo`` (and ``fit_s`` /
+#: ``acquire_s`` where the searcher has a surrogate); ``session`` —
+#: ``TuningSession.run``'s own work before the search loop
+#: (``part="setup"``) and after the final re-measurement (``part="record"``)
+HOST_STAGES = ("propose", "session")
 
 
 def shard_file(trace_path: str, shard: int) -> str:

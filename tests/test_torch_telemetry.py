@@ -16,6 +16,11 @@ same input wherever both can take it:
 * on the ``cuda`` backend (plain versions on the CPU, clocks ticking 1.0 a
   reading) the trace's per-stage totals equal the units' ``stage_s``.
 
+The port traces more than the reference: its host stages (``propose``
+around each searcher step of the engine's loop; ``session`` in single tune
+calls, ``tests/test_torch_host_stages.py``) are set apart before a trace is
+compared with the reference's, and counted.
+
 Tolerance is exact everywhere: these paths do no floating-point work the
 two packages could round apart.
 """
@@ -65,6 +70,7 @@ from repro_torch.telemetry import (
     summarize,
 )
 from repro_torch.telemetry.__main__ import main as port_cli
+from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
 from repro_torch.telemetry.assert_counters import main as port_assert_counters
 from repro_torch.telemetry.null import _NULL_SPAN
 from repro_torch.telemetry.progress import scan_events
@@ -104,6 +110,24 @@ def stable_events(events: list[dict]) -> list[dict]:
 
 def totals_of(events: list[dict]) -> dict:
     return [e for e in events if e["ev"] == "totals"][-1]["counters"]
+
+
+def split_host_stages(events: list[dict]) -> tuple[list[dict], list[dict]]:
+    """``(shared, host)``: the port's host ``stage`` events (``propose``,
+    ``session``), which the reference's trace lacks, apart from the rest."""
+    host = [e for e in events if e["ev"] == "stage" and e["stage"] in HOST_STAGES]
+    return [e for e in events if not (e["ev"] == "stage" and e["stage"] in HOST_STAGES)], host
+
+
+def assert_one_propose_per_searcher_step(events: list[dict], n_drives: int) -> None:
+    """The host stages of a cost-model matrix: a ``propose`` event for each
+    searcher step of the engine's loop (``start``, one ``tell`` a round,
+    ``finish``) and nothing else."""
+    _, host = split_host_stages(events)
+    rounds = [e for e in events if e["ev"] == "end" and e.get("span") == "round"]
+    assert {e["stage"] for e in host} == {"propose"}
+    assert len(host) == len(rounds) + 2 * n_drives
+    assert sorted({e["algo"] for e in host}) == sorted({e["algo"] for e in rounds})
 
 
 @pytest.fixture
@@ -255,9 +279,12 @@ def test_serial_identical_store_and_trace_covers_every_unit(tmp_path):
     assert "repro_version" in session.last_record.provenance
 
     # the reference's run of the same matrix: the same events in the same
-    # order (clocks and wall-clocks aside), the same totals and unit counters
+    # order (clocks and wall-clocks aside; the port's host stages, which the
+    # reference does not trace, apart), the same totals and unit counters
     ref_session, ref_events = ref_run(tmp_path)
-    assert stable_events(events) == stable_events(ref_events)
+    shared, _ = split_host_stages(events)
+    assert stable_events(shared) == stable_events(ref_events)
+    assert_one_propose_per_searcher_step(events, n_drives=4)   # ga's 4 experiments
     assert totals == totals_of(ref_events)
     assert unit_counters(session.unit_journal(), session.last_unit_plan) == unit_counters(
         RefJournal(ref_session.store, ref_session.journal_namespace()),
@@ -299,7 +326,8 @@ def test_process_executor_identical_store_and_merged_shards(tmp_path, scheduler)
         return sorted(stable_events(e for e in evs if e["ev"] not in ("gauge", "counters")),
                       key=json.dumps)
 
-    assert span_events(events) == span_events(ref_events)
+    assert span_events(split_host_stages(events)[0]) == span_events(ref_events)
+    assert_one_propose_per_searcher_step(events, n_drives=4)
 
 
 def test_futures_executor_identical_store(tmp_path):
@@ -565,9 +593,10 @@ def test_assert_counters_agrees_with_the_reference_tool(traced_run, capsys):
 
 def test_cuda_stage_totals_equal_stage_s(tmp_path):
     """The cuda backend (plain versions on the CPU, the clock ticking 1.0 a
-    reading): each stage's trace total equals the units' summed
-    ``stage_s`` exactly — rf's prediction measurements included — and the
-    report's stage table is the reference's for the same directory."""
+    reading): each measurement stage's trace total equals the units' summed
+    ``stage_s`` exactly — rf's prediction measurements included — the only
+    other stage is the trace-only ``propose``, and the report's stage table
+    is the reference's for the same directory."""
     from repro.analysis.report import _telemetry_section as ref_section
     from repro_torch.analysis.report import _telemetry_section
 
@@ -593,8 +622,10 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
         for k, v in journal.get(u).stage_s.items():
             stage_s[k] = stage_s.get(k, 0.0) + v
     totals = {k: v["total_s"] for k, v in stage_percentiles(events).items()}
-    assert set(totals) == {"screen", "compile", "time", "record"}
-    assert totals == stage_s
+    measured = {k: v for k, v in totals.items() if k in PIPELINE_STAGES}
+    assert set(measured) == {"screen", "inputs", "compile", "time", "record"}
+    assert measured == stage_s
+    assert set(totals) - set(measured) == {"propose"}
     counters = totals_of(events)
     assert counters["compiles"] > 0 and counters["experiments_completed"] == 6
     assert counters["store_misses"] > 0
