@@ -106,7 +106,6 @@ class Searcher(ABC):
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self._session = None
-        self._split = dict.fromkeys(self.SPLIT, 0.0)
 
     # -- ask/tell protocol ----------------------------------------------------
     def start(self, budget: int) -> TuningResult:

@@ -283,15 +283,8 @@ class CudaMeasurement(BaseMeasurement):
         with self._cache_lock:
             if self._inputs is None:
                 with self._staged("inputs") as attrs, self._device_lock:
-                    timings = {} if self.telemetry.enabled else None
-                    inputs = self.workload.materialize(self.device, timings)
-                    for t in inputs:
-                        fence(t)
-                    if timings is not None:
-                        attrs.update(
-                            timings,
-                            bytes=sum(t.numel() * t.element_size() for t in inputs),
-                        )
+                    inputs = self.workload.materialize(self.device, attrs)
+                    attrs["bytes"] = sum(t.numel() * t.element_size() for t in inputs)
                 self._inputs = inputs
             return self._inputs
 

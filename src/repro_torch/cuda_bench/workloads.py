@@ -49,21 +49,21 @@ class CudaWorkload:
         return tuple(self.bench.make_inputs(self.x, self.y, seed))
 
     def materialize(self, device, timings: dict | None = None) -> tuple[torch.Tensor, ...]:
-        """The inputs as tensors on ``device`` (always named: a caller who
-        forgets it must not land on the CPU without a word).
+        """The inputs as tensors on ``device``, the copy waited for (always
+        named: a caller who forgets it must not land on the CPU without a
+        word).
 
         ``timings``, when given, receives ``draw_s`` (the numpy draw,
-        :meth:`arrays`) and ``copy_s`` (the copy to ``device``, waited for);
-        the tensors are the same either way."""
-        if timings is None:
-            return tuple(torch.from_numpy(a).to(device) for a in self.arrays())
+        :meth:`arrays`) and ``copy_s`` (the copy to ``device``); the tensors
+        are the same either way."""
         t0 = monotonic()
         arrays = self.arrays()
         t1 = monotonic()
         out = tuple(torch.from_numpy(a).to(device) for a in arrays)
         for t in out:
             fence(t)
-        timings.update(draw_s=t1 - t0, copy_s=monotonic() - t1)
+        if timings is not None:
+            timings.update(draw_s=t1 - t0, copy_s=monotonic() - t1)
         return out
 
     def run(self, inputs: tuple, cfg: Config, device):
