@@ -36,7 +36,7 @@ Phases (any failure exits non-zero and prints no result line):
    (backend ``cuda``, design S = 25, 50 with 4 and 2 experiments, 10 final
    repeats, a 200-sample dataset cached on disk): harris with the paper's
    five algorithms on the serial executor (cold; one line per cell, and the
-   share of the wall time spent drawing and copying inputs), then replayed
+   share of the wall time spent staging inputs), then replayed
    warm on the ``device`` executor from a copy of its store (no launch, the
    same cells, byte-identical store values, no shard file left), then
    resumed from the unit journal (no unit runs, no launch); add and
@@ -592,9 +592,10 @@ def run_searchers() -> dict:
 @contextlib.contextmanager
 def timed_materialize():
     """Counts the input materialisations inside the block and their seconds:
-    every fresh ``CudaMeasurement`` draws its inputs with numpy and copies
-    them to the card, as the reference's measurements do.  The script wraps
-    the method only to measure that share of a matrix run."""
+    every fresh ``CudaMeasurement`` copies its inputs to the card, drawn with
+    numpy on the process's first use of the workload and taken from the
+    input cache after it.  The script wraps the method only to measure that
+    share of a matrix run."""
     import torch
 
     from repro_torch.cuda_bench.workloads import CudaWorkload

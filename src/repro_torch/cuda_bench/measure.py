@@ -11,7 +11,8 @@ wall-clock into provenance:
   geometries before any launch; failures become structured
   :class:`~repro_torch.cuda_bench.validity.InvalidMeasurement` penalties
   (``float("inf")`` through the ordinary ``tell`` path).
-* **inputs** — the workload's inputs drawn and copied to the device
+* **inputs** — the workload's inputs taken from the process's input cache
+  (drawn on its first use in the process) and copied to the device
   (:meth:`~repro_torch.cuda_bench.workloads.CudaWorkload.materialize`,
   waited for), once a measurement, on its first fill and before that
   fill's compile stage opens; a workload without inputs stages an empty
@@ -58,8 +59,10 @@ error raises and leaves the entry unwritten.
 With a telemetry sink attached (:meth:`BaseMeasurement.set_telemetry`),
 every stage also emits a ``stage`` trace event carrying the same duration
 its clock was charged, so a trace's per-stage totals equal ``stage_s``
-(the ``inputs`` event also carries ``bytes``, ``draw_s`` and ``copy_s``); the
-``compiles`` counter counts cache fills (as ``n_compiles`` does),
+(the ``inputs`` event also carries ``bytes``, ``draw_s``, ``copy_s`` and
+``cache_hit``); the ``compiles`` counter counts cache fills (as
+``n_compiles`` does), ``inputs.cache_hits`` / ``inputs.cache_misses`` the
+input cache's lookups (the port's own),
 ``invalid.<rule>`` counts penalties by validity rule (``align`` / ``block``
 / ``grid`` / ``smem``) or by failing stage (``compile`` / ``run``), and the
 reference's ``pcache.hits`` / ``pcache.misses`` / ``pcache.stores`` /
@@ -277,15 +280,21 @@ class CudaMeasurement(BaseMeasurement):
     def _stage_inputs(self) -> tuple:
         """The workload's inputs on the device: staged once a measurement, in
         the ``inputs`` stage (draw, copy, and a wait for the copy), so the
-        compile stage holds warm launches alone.  With telemetry on, the
-        stage's event carries ``bytes`` (all inputs), ``draw_s`` and
-        ``copy_s``."""
+        compile stage holds warm launches alone.  The host arrays come from
+        the process's input cache (:mod:`.workloads`); the copy is made
+        every time.  With telemetry on, the stage's event carries ``bytes``
+        (all inputs), ``draw_s``, ``copy_s`` and ``cache_hit``, and the
+        ``inputs.cache_hits`` / ``inputs.cache_misses`` counters count
+        lookups (a workload without inputs makes none)."""
         with self._cache_lock:
             if self._inputs is None:
                 with self._staged("inputs") as attrs, self._device_lock:
                     inputs = self.workload.materialize(self.device, attrs)
                     attrs["bytes"] = sum(t.numel() * t.element_size() for t in inputs)
                 self._inputs = inputs
+                hit = attrs.get("cache_hit")
+                if hit is not None and self.telemetry.enabled:
+                    self.telemetry.inc("inputs.cache_hits" if hit else "inputs.cache_misses")
             return self._inputs
 
     def _compile_now(

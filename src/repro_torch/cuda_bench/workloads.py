@@ -8,11 +8,22 @@ name, x, y, input_seed))``, ``standard_normal``, cast to float32 — and only
 then become tensors, so :meth:`CudaWorkload.materialize` is byte-identical to
 the reference's for the same fields.  The measurement stages them in an
 ``inputs`` stage of its own; ``materialize(device, timings)`` splits that
-stage into the numpy draw and the copy to the device.
+stage into the draw (or the cache's lookup) and the copy to the device.
+
+The draw is a pure function of ``(kernel, x, y, input_seed)``, so the host
+arrays are drawn once a process and kept in a process-wide cache (least
+recently used out first, :data:`INPUT_CACHE_BYTES` in all).  Every
+``materialize`` still copies them to the device and waits for the copy: the
+device holds nothing across calls.  The cached arrays are read-only, no
+tensor handed out aliases them, and two threads that miss on one key draw
+once.  :meth:`CudaWorkload.arrays` stays the plain, uncached draw.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -29,6 +40,79 @@ from ..kernels.common import Config, KernelBenchSpec
 DEFAULT_X = 8192
 DEFAULT_Y = 8192
 
+#: host bytes the input cache keeps: harris's one 8192² f32 array and add's
+#: two fit together.  An entry larger than this is drawn and not kept
+INPUT_CACHE_BYTES = 2 << 30
+
+
+class _InputCache:
+    """Drawn host inputs by ``(kernel, x, y, input_seed)``, read-only."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: OrderedDict[tuple, tuple[np.ndarray, ...]] = OrderedDict()
+        self._drawing: dict[tuple, Future] = {}
+        self.nbytes = 0
+
+    def get(self, key: tuple, draw) -> tuple[tuple[np.ndarray, ...], bool]:
+        """``(arrays, hit)``: the arrays of ``key``, drawn by ``draw()`` on a
+        miss.  A thread that misses while another draws the same key waits
+        for that draw (a hit: it drew nothing)."""
+        with self._lock:
+            arrays = self._entries.get(key)
+            if arrays is not None:
+                self._entries.move_to_end(key)
+                return arrays, True
+            pending = self._drawing.get(key)
+            if pending is None:
+                self._drawing[key] = mine = Future()
+        if pending is not None:
+            return pending.result(), True
+        try:
+            arrays = tuple(draw())
+            for a in arrays:
+                a.flags.writeable = False
+        except BaseException as e:
+            with self._lock:
+                del self._drawing[key]
+            mine.set_exception(e)
+            raise
+        size = sum(a.nbytes for a in arrays)
+        with self._lock:
+            del self._drawing[key]
+            if size <= INPUT_CACHE_BYTES:
+                while self._entries and self.nbytes + size > INPUT_CACHE_BYTES:
+                    self.nbytes -= sum(a.nbytes for a in self._entries.popitem(last=False)[1])
+                self._entries[key] = arrays
+                self.nbytes += size
+        mine.set_result(arrays)
+        return arrays, False
+
+    def peek(self, key: tuple) -> tuple[np.ndarray, ...] | None:
+        """The arrays of ``key``, or ``None``; not counted as a use."""
+        with self._lock:
+            return self._entries.get(key)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.nbytes = 0
+
+
+_INPUT_CACHE = _InputCache()
+
+
+def clear_input_cache() -> None:
+    """Empty the process's input cache (the next ``materialize`` of each
+    workload draws again)."""
+    _INPUT_CACHE.clear()
+
+
+def cached_inputs(workload: "CudaWorkload") -> tuple[np.ndarray, ...] | None:
+    """``workload``'s cached host arrays (read-only), or ``None`` where the
+    cache holds none."""
+    return _INPUT_CACHE.peek(workload.cache_key)
+
 
 @dataclass(frozen=True)
 class CudaWorkload:
@@ -43,27 +127,42 @@ class CudaWorkload:
     def name(self) -> str:
         return self.bench.name
 
+    @property
+    def cache_key(self) -> tuple:
+        """What the inputs are a function of."""
+        return (self.name, self.x, self.y, self.input_seed)
+
     def arrays(self) -> tuple[np.ndarray, ...]:
-        """Deterministic numpy inputs (pure function of the workload fields)."""
+        """Deterministic numpy inputs (pure function of the workload fields),
+        drawn anew on every call."""
         seed = stable_seed("pallas_inputs", self.name, self.x, self.y, self.input_seed)
         return tuple(self.bench.make_inputs(self.x, self.y, seed))
 
     def materialize(self, device, timings: dict | None = None) -> tuple[torch.Tensor, ...]:
         """The inputs as tensors on ``device``, the copy waited for (always
         named: a caller who forgets it must not land on the CPU without a
-        word).
+        word).  The host arrays come from the process's input cache, drawn
+        by :meth:`arrays` on a miss; each tensor is a copy of its own.
 
-        ``timings``, when given, receives ``draw_s`` (the numpy draw,
-        :meth:`arrays`) and ``copy_s`` (the copy to ``device``); the tensors
-        are the same either way."""
+        ``timings``, when given, receives ``draw_s`` (the draw, or on a hit
+        the lookup), ``copy_s`` (the copy to ``device``) and, for a workload
+        with inputs, ``cache_hit`` (1 or 0); the tensors are the same either
+        way."""
         t0 = monotonic()
-        arrays = self.arrays()
+        if self.bench.n_inputs:
+            arrays, hit = _INPUT_CACHE.get(self.cache_key, self.arrays)
+        else:
+            arrays, hit = (), None
         t1 = monotonic()
-        out = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        # torch.tensor copies (from_numpy would alias, and warns on a
+        # read-only array): one copy to the card, or a tensor of its own here
+        out = tuple(torch.tensor(a, device=device) for a in arrays)
         for t in out:
             fence(t)
         if timings is not None:
             timings.update(draw_s=t1 - t0, copy_s=monotonic() - t1)
+            if hit is not None:
+                timings["cache_hit"] = int(hit)
         return out
 
     def run(self, inputs: tuple, cfg: Config, device):

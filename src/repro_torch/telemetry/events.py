@@ -62,9 +62,10 @@ SHARD_RE = re.compile(r"^trace\.shard(\d+)\.jsonl$")
 SPAN_LEVELS = ("matrix", "cell", "unit", "round", "experiment", "stage")
 
 #: the measurement's stages, each charged to its stage clock (``stage_s``).
-#: ``inputs`` (the workload's inputs drawn and copied to the card, once a
-#: measurement, with ``bytes``, ``draw_s`` and ``copy_s``) is the port's:
-#: the reference stages its inputs inside ``compile``
+#: ``inputs`` (the workload's inputs, cached on the host, copied to the card
+#: once a measurement, with ``bytes``, ``draw_s``, ``copy_s`` and
+#: ``cache_hit``) is the port's: the reference stages its inputs inside
+#: ``compile``
 PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 
 #: the port's host stages, trace-only (no ``stage_s`` counterpart):
@@ -79,6 +80,12 @@ PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 #: ``Searcher`` protocol the reference shares; two ``perf_counter`` reads
 #: (~0.1 µs) against a step of 0.3–10 ms is below any metric's noise
 HOST_STAGES = ("propose", "session")
+
+#: the port's own counters, which the reference's trace lacks:
+#: ``inputs.cache_hits`` / ``inputs.cache_misses`` count the lookups of the
+#: process's input cache (``cuda_bench/workloads.py``; the reference draws a
+#: measurement's inputs anew every time)
+PORT_COUNTERS = ("inputs.cache_hits", "inputs.cache_misses")
 
 
 def shard_file(trace_path: str, shard: int) -> str:

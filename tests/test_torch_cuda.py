@@ -109,6 +109,34 @@ def test_cuda_wrapper_raises_on_refused_launch(card):
         add(a, a, {})
 
 
+@pytest.mark.parametrize("kernel", ["add", "harris"])
+def test_cuda_kernels_leave_their_cached_inputs_unchanged(card, kernel):
+    """After launches over several configs, the staged device tensors and
+    the process's cached host arrays still hold the drawn bytes, and a
+    second staging (a cache hit) copies the same bytes to the card."""
+    import numpy as np
+
+    from repro_torch.cuda_bench import workloads
+
+    w = workloads.make_workload(kernel, 1000, 1001, input_seed=5)
+    plain = w.arrays()
+    workloads.clear_input_cache()
+    inputs = w.materialize(card)
+    for cfg in CONFIGS:
+        w.run(inputs, cfg, card)
+    torch.cuda.synchronize(card)
+    timings: dict = {}
+    again = w.materialize(card, timings)
+    assert timings["cache_hit"] == 1
+    cached = workloads.cached_inputs(w)
+    for t, u, c, a in zip(inputs, again, cached, plain, strict=True):
+        assert t.is_cuda and t.data_ptr() != u.data_ptr()
+        assert t.cpu().numpy().tobytes() == a.tobytes()
+        assert u.cpu().numpy().tobytes() == a.tobytes()
+        assert not c.flags.writeable and np.asarray(c).tobytes() == a.tobytes()
+    workloads.clear_input_cache()
+
+
 def test_cuda_tune_runs_on_the_card(card):
     session = TuningSession(TuningSpec(
         kernel="harris", backend="cuda", searcher="rs", budget=6,

@@ -16,16 +16,25 @@ trace-only.  Held here, on the ``cuda`` backend's plain versions
 * without a sink, ``drive`` reads the clock no more than the bare ask/tell
   loop does; results and stores are identical with the sink on and off;
 * the sink stamps events on ``time.perf_counter``, the clock the
-  benchmark's profiler reader maps onto the device's.
+  benchmark's profiler reader maps onto the device's;
+* the process's input cache: a miss, a hit and a draw after eviction give
+  the bytes of ``arrays()`` and of the reference's ``materialize()``; other
+  fields miss; no kernel writes its inputs, no tensor aliases the cache and
+  its arrays are read-only; one lookup counted a measurement, two threads
+  that miss on one key draw once, and an entry over the cap is not kept.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
+import threading
 import time
 
+import numpy as np
 import pytest
+import torch
 
 from repro_torch import TuningSession, TuningSpec
 from repro_torch.core import clock as port_clock
@@ -34,7 +43,13 @@ from repro_torch.core.measurement import CallableMeasurement
 from repro_torch.core.searchers import make_searcher
 from repro_torch.core.space import paper_space
 from repro_torch.cuda_bench.measure import CudaMeasurement
-from repro_torch.cuda_bench.workloads import make_workload
+from repro_torch.cuda_bench import workloads
+from repro_torch.cuda_bench.workloads import (
+    CudaWorkload,
+    cached_inputs,
+    clear_input_cache,
+    make_workload,
+)
 from repro_torch.telemetry import NULL_TELEMETRY, Telemetry, read_events
 from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
 
@@ -55,6 +70,15 @@ class CountingClock:
     def __call__(self) -> float:
         self.n += 1
         return float(self.n)
+
+
+@pytest.fixture(autouse=True)
+def fresh_input_cache():
+    """Each test starts on an empty input cache, so test order decides
+    nothing (the first staging of a workload draws)."""
+    clear_input_cache()
+    yield
+    clear_input_cache()
 
 
 @pytest.fixture
@@ -111,11 +135,236 @@ def test_inputs_stage_leaves_the_tensors_unchanged():
     timings: dict = {}
     timed = w.materialize("cpu", timings)
     plain = w.materialize("cpu")
-    assert set(timings) == {"draw_s", "copy_s"}
+    assert set(timings) == {"draw_s", "copy_s", "cache_hit"}
     assert len(timed) == len(plain) == 1
     assert timed[0].dtype == plain[0].dtype and timed[0].shape == (X, Y)
     assert timed[0].numpy().tobytes() == plain[0].numpy().tobytes()
     assert timed[0].numpy().tobytes() == w.arrays()[0].tobytes()
+
+
+# ------------------------------------------------------------ the input cache
+
+#: kernels with inputs (mandelbrot has none and bypasses the cache)
+INPUT_KERNELS = ("add", "harris")
+LAUNCH_CONFIGS = [
+    {},
+    dict(t_x=2, t_y=1, t_z=2, w_x=2, w_y=2, w_z=2),
+    dict(t_x=1, t_y=1, t_z=3, w_x=3, w_y=1, w_z=1),
+    dict(t_x=4, t_y=1, t_z=1, w_x=1, w_y=1, w_z=4),
+]
+
+
+def staged(w, device="cpu") -> tuple[tuple, dict]:
+    timings: dict = {}
+    return w.materialize(device, timings), timings
+
+
+def assert_bytes(tensors, arrays) -> None:
+    assert len(tensors) == len(arrays) > 0
+    for t, a in zip(tensors, arrays, strict=True):
+        assert t.dtype == torch.float32 and tuple(t.shape) == a.shape
+        assert t.numpy().tobytes() == np.asarray(a).tobytes()
+
+
+@pytest.mark.parametrize("kernel", INPUT_KERNELS)
+@pytest.mark.parametrize("input_seed", [0, 3])
+def test_cached_inputs_are_byte_identical_to_the_reference(monkeypatch, kernel, input_seed):
+    """A miss, a hit and a draw after eviction each give the bytes of the
+    uncached ``arrays()`` and of the reference's ``materialize()``."""
+    from repro.pallas_bench import make_workload as ref_make_workload
+
+    w = make_workload(kernel, X, Y, input_seed=input_seed)
+    ref = tuple(np.asarray(a) for a in ref_make_workload(kernel, X, Y, input_seed).materialize())
+    plain = w.arrays()
+    miss, t_miss = staged(w)
+    hit, t_hit = staged(w)
+    assert (t_miss["cache_hit"], t_hit["cache_hit"]) == (0, 1)
+    # a cap that holds one workload's arrays: another workload evicts this one
+    monkeypatch.setattr(workloads, "INPUT_CACHE_BYTES", sum(a.nbytes for a in plain))
+    staged(make_workload(kernel, X, Y, input_seed=input_seed + 1))
+    assert cached_inputs(w) is None
+    again, t_again = staged(w)
+    assert t_again["cache_hit"] == 0
+    for got in (miss, hit, again):
+        assert_bytes(got, plain)
+        assert_bytes(got, ref)
+    assert_bytes(tuple(torch.from_numpy(a.copy()) for a in cached_inputs(w)), ref)
+
+
+@pytest.mark.parametrize("field,value", [("input_seed", 1), ("x", 2 * X), ("y", 2 * Y)])
+def test_another_field_misses(field, value):
+    base = make_workload("harris", X, Y, input_seed=0)
+    staged(base)
+    other = dataclasses.replace(base, **{field: value})
+    got, timings = staged(other)
+    assert timings["cache_hit"] == 0
+    assert_bytes(got, other.arrays())
+    assert staged(base)[1]["cache_hit"] == 1
+    assert workloads._INPUT_CACHE.nbytes == sum(
+        a.nbytes for w in (base, other) for a in w.arrays())
+
+
+def test_the_least_recently_used_entry_goes_first(monkeypatch):
+    a, b, c = (make_workload("harris", X, Y, input_seed=s) for s in (0, 1, 2))
+    monkeypatch.setattr(workloads, "INPUT_CACHE_BYTES", 2 * 4 * X * Y)
+    staged(a), staged(b)
+    assert staged(a)[1]["cache_hit"] == 1     # a is now the most recent
+    staged(c)
+    assert cached_inputs(b) is None
+    assert cached_inputs(a) is not None and cached_inputs(c) is not None
+    assert workloads._INPUT_CACHE.nbytes == 2 * 4 * X * Y
+
+
+@pytest.mark.parametrize("kernel", INPUT_KERNELS)
+def test_no_kernel_writes_its_inputs(kernel):
+    """The staged tensors and the cache's arrays hold the drawn bytes after
+    launches over several configs (the plain versions here; the card's in
+    ``tests/test_torch_cuda.py``); the tensors share no memory with the
+    cache, whose arrays are read-only."""
+    w = make_workload(kernel, X, Y)
+    plain = w.arrays()
+    inputs, _ = staged(w)
+    cached = cached_inputs(w)
+    assert cached is not None and len(cached) == len(plain)
+    for a, t in zip(cached, inputs, strict=True):
+        assert not a.flags.writeable
+        with pytest.raises(ValueError):
+            a[0, 0] = 1.0
+        assert not np.shares_memory(t.numpy(), a)
+    for cfg in LAUNCH_CONFIGS:
+        w.run(inputs, cfg, "cpu")
+    assert_bytes(inputs, plain)
+    assert_bytes(tuple(torch.from_numpy(a.copy()) for a in cached_inputs(w)), plain)
+    # a tensor handed out may be written without reaching the cache
+    inputs[0].fill_(0.0)
+    assert_bytes(staged(w)[0], plain)
+
+
+def test_mandelbrot_bypasses_the_cache(tmp_path):
+    w = make_workload("mandelbrot", X, Y)
+    got, timings = staged(w)
+    assert got == () and "cache_hit" not in timings
+    assert cached_inputs(w) is None and workloads._INPUT_CACHE.nbytes == 0
+    tel = Telemetry(str(tmp_path / "t.jsonl"))
+    m = CudaMeasurement(w, repeats=1, device="cpu")
+    m.set_telemetry(tel)
+    m.measure_batch(CONFIGS[:1])
+    tel.close()
+    (ev,) = stage_events(tmp_path / "t.jsonl", {"inputs"})
+    assert "cache_hit" not in ev
+    counters = [e for e in read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "counters"]
+    assert not any(k.startswith("inputs.") for e in counters for k in e["counters"])
+
+
+def test_measurements_count_one_lookup_each(tmp_path):
+    """Two measurements of one workload under one sink: one miss, then one
+    hit, on the counters and on the ``inputs`` events."""
+    tel = Telemetry(str(tmp_path / "t.jsonl"))
+    for _ in range(2):
+        m = CudaMeasurement(make_workload("harris", X, Y), repeats=1, device="cpu")
+        m.set_telemetry(tel)
+        m.measure_batch(CONFIGS)
+        m.measure_final(CONFIGS[0], repeats=1)
+    tel.close()
+    events = stage_events(tmp_path / "t.jsonl", {"inputs"})
+    assert [e["cache_hit"] for e in events] == [0, 1]
+    assert all(e["bytes"] == 4 * X * Y for e in events)
+    counters = [e for e in read_events(str(tmp_path / "t.jsonl"))
+                if e["ev"] == "counters"][-1]["counters"]
+    assert (counters["inputs.cache_misses"], counters["inputs.cache_hits"]) == (1, 1)
+
+
+def test_two_threads_that_miss_together_draw_once():
+    calls = []
+
+    def slow_draw(x, y, seed):
+        calls.append(seed)
+        time.sleep(0.3)   # the other thread asks while this one draws
+        return workloads.KERNEL_BENCHES["harris"].make_inputs(x, y, seed)
+
+    w = CudaWorkload(dataclasses.replace(workloads.KERNEL_BENCHES["harris"],
+                                         make_inputs=slow_draw), X, Y)
+    start = threading.Barrier(2)
+    got: list = [None, None]
+
+    def stage(i):
+        start.wait()
+        got[i] = staged(w)
+
+    threads = [threading.Thread(target=stage, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1
+    assert sorted(timings["cache_hit"] for _, timings in got) == [0, 1]
+    for tensors, _ in got:
+        assert_bytes(tensors, make_workload("harris", X, Y).arrays())
+    assert not np.shares_memory(got[0][0][0].numpy(), got[1][0][0].numpy())
+
+
+def test_cache_holds_under_thread_contention(monkeypatch):
+    """More threads than cores stage four workloads in random order under a
+    cap that holds two, with the interpreter switching threads often: every
+    staging gives the drawn bytes, and the cache's byte count equals what it
+    holds and stays under the cap (a lost update would break either)."""
+    import os
+    import random
+    import sys
+
+    ws = [make_workload("harris", X, Y, input_seed=s) for s in range(4)]
+    want = {w.cache_key: w.arrays()[0].tobytes() for w in ws}
+    monkeypatch.setattr(workloads, "INPUT_CACHE_BYTES", 2 * 4 * X * Y)
+    n_threads = 2 * (os.cpu_count() or 2) + 2
+    faults: list = []
+
+    def stage(seed):
+        rng = random.Random(seed)
+        for _ in range(40):
+            w = rng.choice(ws)
+            got = w.materialize("cpu")[0].numpy().tobytes()
+            if got != want[w.cache_key]:
+                faults.append(w.cache_key)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=stage, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert faults == []
+    cache = workloads._INPUT_CACHE
+    held = sum(a.nbytes for arrays in cache._entries.values() for a in arrays)
+    assert cache.nbytes == held <= workloads.INPUT_CACHE_BYTES
+    assert cache._drawing == {}
+
+
+def test_a_draw_that_fails_is_not_kept():
+    def failing(x, y, seed):
+        raise RuntimeError("draw failed")
+
+    w = CudaWorkload(dataclasses.replace(workloads.KERNEL_BENCHES["harris"],
+                                         make_inputs=failing), X, Y)
+    for _ in range(2):   # the second asks again: nothing of the first is left
+        with pytest.raises(RuntimeError, match="draw failed"):
+            staged(w)
+    assert cached_inputs(w) is None and workloads._INPUT_CACHE.nbytes == 0
+
+
+def test_an_entry_over_the_cap_is_not_kept(monkeypatch):
+    monkeypatch.setattr(workloads, "INPUT_CACHE_BYTES", 4 * X * Y - 1)
+    w = make_workload("harris", X, Y)
+    for _ in range(2):
+        got, timings = staged(w)
+        assert timings["cache_hit"] == 0
+        assert_bytes(got, w.arrays())
+    assert cached_inputs(w) is None and workloads._INPUT_CACHE.nbytes == 0
 
 
 # ---------------------------------------------------- propose and session stages

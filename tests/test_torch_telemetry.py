@@ -19,7 +19,8 @@ same input wherever both can take it:
 The port traces more than the reference: its host stages (``propose``
 around each searcher step of the engine's loop; ``session`` in single tune
 calls, ``tests/test_torch_host_stages.py``) are set apart before a trace is
-compared with the reference's, and counted.
+compared with the reference's, and counted; so are its own counters
+(``PORT_COUNTERS``: the input cache's hits and misses).
 
 Tolerance is exact everywhere: these paths do no floating-point work the
 two packages could round apart.
@@ -54,6 +55,7 @@ from repro.telemetry.progress import scan_events as ref_scan_events
 from repro_torch import ExperimentDesign, TuningSession, TuningSpec
 from repro_torch.core import MeasurementStore, executors
 from repro_torch.core import clock as port_clock
+from repro_torch.cuda_bench.workloads import clear_input_cache
 from repro_torch.telemetry import (
     NULL_TELEMETRY,
     TRACE_FILE,
@@ -70,7 +72,7 @@ from repro_torch.telemetry import (
     summarize,
 )
 from repro_torch.telemetry.__main__ import main as port_cli
-from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
+from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES, PORT_COUNTERS
 from repro_torch.telemetry.assert_counters import main as port_assert_counters
 from repro_torch.telemetry.null import _NULL_SPAN
 from repro_torch.telemetry.progress import scan_events
@@ -110,6 +112,14 @@ def stable_events(events: list[dict]) -> list[dict]:
 
 def totals_of(events: list[dict]) -> dict:
     return [e for e in events if e["ev"] == "totals"][-1]["counters"]
+
+
+def split_port_counters(counters: dict) -> tuple[dict, dict]:
+    """``(shared, port)``: the port's own counters (:data:`PORT_COUNTERS`),
+    which count the input cache's lookups, a cache the reference does not
+    have, apart from the counters both packages keep."""
+    port = {k: v for k, v in counters.items() if k in PORT_COUNTERS}
+    return {k: v for k, v in counters.items() if k not in PORT_COUNTERS}, port
 
 
 def split_host_stages(events: list[dict]) -> tuple[list[dict], list[dict]]:
@@ -285,7 +295,9 @@ def test_serial_identical_store_and_trace_covers_every_unit(tmp_path):
     shared, _ = split_host_stages(events)
     assert stable_events(shared) == stable_events(ref_events)
     assert_one_propose_per_searcher_step(events, n_drives=4)   # ga's 4 experiments
-    assert totals == totals_of(ref_events)
+    counters, port = split_port_counters(totals)
+    assert counters == totals_of(ref_events)
+    assert port == {}    # the cost model stages no inputs
     assert unit_counters(session.unit_journal(), session.last_unit_plan) == unit_counters(
         RefJournal(ref_session.store, ref_session.journal_namespace()),
         ref_session.last_unit_plan)
@@ -314,7 +326,8 @@ def test_process_executor_identical_store_and_merged_shards(tmp_path, scheduler)
     ref_totals = totals_of(ref_events)
     steals = totals.pop("scheduler.steals", 0)
     ref_totals.pop("scheduler.steals", None)
-    assert totals == ref_totals
+    counters, port = split_port_counters(totals)
+    assert counters == ref_totals and port == {}
     assert 0 <= steals <= len(session.last_unit_plan)
     assert unit_counters(session.unit_journal(), session.last_unit_plan) == unit_counters(
         RefJournal(ref_session.store, ref_session.journal_namespace()),
@@ -341,7 +354,8 @@ def test_futures_executor_identical_store(tmp_path):
     assert os.listdir(tmp_path / "run") == [TRACE_FILE]
     events = read_run(str(tmp_path / "run"))
     _, ref_events = ref_run(tmp_path, futures_pool=ThreadPoolExecutor(max_workers=2), **kwargs)
-    assert totals_of(events) == totals_of(ref_events)
+    counters, port = split_port_counters(totals_of(events))
+    assert counters == totals_of(ref_events) and port == {}
     gauges = [e["value"] for e in events if e.get("gauge") == "scheduler.queue_depth"]
     assert sorted(gauges, reverse=True) == list(range(len(gauges) - 1, -1, -1))
 
@@ -363,7 +377,8 @@ def test_device_executor_identical_store(tmp_path, two_cpu_devices, scheduler):
     totals, ref_totals = totals_of(events), totals_of(ref_events)
     totals.pop("scheduler.steals", None)
     ref_totals.pop("scheduler.steals", None)
-    assert totals == ref_totals
+    counters, port = split_port_counters(totals)
+    assert counters == ref_totals and port == {}
     cards = {d["device"] for d in session.last_unit_devices.values()}
     # static hands each card a payload; under steal a card's thread may
     # find the queue empty
@@ -608,6 +623,7 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
                       store="json", store_path=str(tmp_path / "s.json"))
     ticks = itertools.count()
     port_clock.set_timer(lambda: float(next(ticks)))
+    clear_input_cache()
     try:
         tel = for_run_dir(str(tmp_path / "run"))
         session = TuningSession(spec, telemetry=tel)
@@ -626,9 +642,16 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
     assert set(measured) == {"screen", "inputs", "compile", "time", "record"}
     assert measured == stage_s
     assert set(totals) - set(measured) == {"propose"}
-    counters = totals_of(events)
+    counters, port = split_port_counters(totals_of(events))
     assert counters["compiles"] > 0 and counters["experiments_completed"] == 6
     assert counters["store_misses"] > 0
+    # one lookup of the input cache a staging, and one draw in the process
+    # at most (the dataset's untraced measurement may make it)
+    stagings = [e for e in events if e["ev"] == "stage" and e["stage"] == "inputs"]
+    hits = sum(e["cache_hit"] for e in stagings)
+    assert len(stagings) > 0 and len(stagings) - hits <= 1
+    assert port == {k: v for k, v in (("inputs.cache_hits", hits),
+                                      ("inputs.cache_misses", len(stagings) - hits)) if v}
     assert _telemetry_section({}, str(tmp_path / "run")) == ref_section(
         {}, str(tmp_path / "run"))
     assert "### Pipeline stage durations" in _telemetry_section({}, str(tmp_path / "run"))
