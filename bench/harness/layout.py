@@ -61,6 +61,14 @@ def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
+def first_cells(root: Path = ROOT) -> list[str]:
+    """The first cell of each configuration, in the order of ``configs``:
+    one cell for every kernel the benchmark runs."""
+    bench = load_benchmark(root)
+    return [next(w["name"] for w in bench["workloads"] if w["config"] == c["name"])
+            for c in bench["configs"]]
+
+
 def traffic_path(name: str, root: Path = ROOT) -> Path:
     return Path(root) / "bench" / "traffic" / f"{name}.json"
 

@@ -1,6 +1,7 @@
-"""``compile_ms_per_sample``: the measurement's compile stage (the input's
-staging on the call's first fill, and each geometry's first warmed launch),
-summed over the window's calls, per sample."""
+"""``compile_ms_per_sample``: the measurement's compile stage (each new
+geometry's warm launches; the inputs' staging is the ``inputs`` stage,
+read by ``inputs_ms_per_sample``), summed over the window's calls, per
+sample."""
 
 
 def read(run):

@@ -1,7 +1,9 @@
-"""``inputs_ms_per_sample``: the measurement's inputs stage (the numpy draw
-of the call's inputs and their copy to the card, once a call, on its first
-fill), summed over the window's calls, per sample.  ``None`` where no call
-has the stage (a program that stages its inputs inside the compile stage)."""
+"""``inputs_ms_per_sample``: the measurement's inputs stage (the call's
+inputs, drawn by numpy in the process's first call and taken from its
+input cache after that, and their copy to the card, once a call, on its
+first fill), summed over the window's calls, per sample.  ``None`` where
+no call has the stage (a program that stages its inputs inside the
+compile stage)."""
 
 
 def read(run):

@@ -38,7 +38,7 @@ def test_the_lower_precision_control_fails(name, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["harris.ga-200", "mandelbrot.ga-200"])
+@pytest.mark.parametrize("name", layout.first_cells())
 def test_a_timer_without_its_fence_fails(name, cuda, monkeypatch):
     """The tuner's repeats timed without the synchronise inside the timed
     region (they read the launch's enqueue): the timer ratio of each call

@@ -22,6 +22,8 @@ ROOT = layout.ROOT
 #: the benchmark's kernel time of every config in these runs, against the
 #: port's clock ticking 1 ms a reading: the timer ratio reads 0.9
 BENCH_MS = 0.9
+#: the first cell of each configuration: every kernel the benchmark runs
+FIRST_CELLS = layout.first_cells()
 
 
 def small_cell(name: str, x: int = 64, y: int = 256, budget: int = 20):
@@ -51,7 +53,7 @@ def cpu_run(cell, seed: int = 2**31 + 11):
                            timer=lambda fn: BENCH_MS)
 
 
-@pytest.mark.parametrize("name", ["harris.ga-200", "mandelbrot.ga-200"])
+@pytest.mark.parametrize("name", FIRST_CELLS)
 def test_a_sound_run_is_correct(name, ticking_clock):
     res = cpu_run(small_cell(name))
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 1
@@ -80,18 +82,19 @@ def _one_answer(out, x, y):
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half, _one_answer])
-@pytest.mark.parametrize("name", ["harris.ga-200", "mandelbrot.ga-200"])
+@pytest.mark.parametrize("name", FIRST_CELLS)
 def test_a_broken_kernel_is_not_correct(name, fault, ticking_clock, monkeypatch):
     """The kernel leaves its output unchanged, computes half the image, or
     alters one pixel where it is produced."""
     from repro_torch.kernels import KERNEL_BENCHES
 
-    kernel = name.split(".")[0]
+    cell = small_cell(name)
+    kernel = cell.config["kernel"]
     bench = KERNEL_BENCHES[kernel]
     broken = dataclasses.replace(
         bench, run=lambda inputs, cfg, x, y, device: fault(bench.run(inputs, cfg, x, y, device), x, y))
     monkeypatch.setitem(KERNEL_BENCHES, kernel, broken)
-    res = cpu_run(small_cell(name))
+    res = cpu_run(cell)
     ref = layout.reference(kernel)
     assert res["correct"] is False and res["failed"] == res["attempted"]
     assert res["checks"][ref.CHECK]["value"] > res["checks"][ref.CHECK]["limit"]

@@ -6,6 +6,7 @@ traced window's idle gaps labelled by those stages."""
 from __future__ import annotations
 
 import pytest
+import torch
 
 from bench.harness import layout, runner, trace
 
@@ -85,8 +86,13 @@ def test_host_stage_labels_come_from_the_trace_summary():
 
 def test_the_readers_are_listed_where_they_find_something():
     per_layer = {m["name"]: m for m in layout.load_benchmark()["per_layer"]}
-    assert per_layer["inputs_ms_per_sample"]["workloads"] == ["harris.ga-200", "harris.rf-100"]
     cells = [w["name"] for w in layout.load_benchmark()["workloads"]]
+    # the inputs stage has something to read in every cell whose kernel
+    # takes inputs, and in no other
+    with_inputs = [c for c in cells if layout.reference(layout.cell(c).config["kernel"])
+                   .make_inputs(2, 4, torch.Generator().manual_seed(0), "cpu")]
+    assert per_layer["inputs_ms_per_sample"]["workloads"] == with_inputs
+    assert "harris.ga-200" in with_inputs and "mandelbrot.ga-200" not in with_inputs
     for metric in HOST:
         assert per_layer[metric]["workloads"] == cells
         assert per_layer[metric]["moves"] == "samples_per_s"
