@@ -629,11 +629,14 @@ def store_values(path: str) -> str:
 
 
 def same_cells(a, b) -> bool:
+    """The same cells, values and per-experiment winners (``best_indices``;
+    ``None`` on both sides counts as the same)."""
     import numpy as np
 
     return set(a.cells) == set(b.cells) and all(
         np.array_equal(getattr(a.cells[k], n), getattr(b.cells[k], n))
-        for k in a.cells for n in ("final_values", "search_best_values", "n_samples_used"))
+        for k in a.cells
+        for n in ("final_values", "search_best_values", "n_samples_used", "best_indices"))
 
 
 def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
@@ -644,7 +647,7 @@ def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
     import numpy as np
     import torch
 
-    from repro_torch import ExperimentDesign, RunRecord, TuningSpec, tune_matrix
+    from repro_torch import ExperimentDesign, RunRecord, TuningSession, TuningSpec, tune_matrix
     from repro_torch.kernels import LAUNCHES
 
     spec = TuningSpec(kernel=kernel, backend="cuda", algorithms=MATRIX_ALGORITHMS[kernel],
@@ -663,17 +666,26 @@ def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
     got = {k: c.n for k, c in LAUNCHES.items()}
     record = RunRecord.load(os.path.join(out_dir, f"{kernel}_{CARD_TAG}.json"))
     walls = {(w["algo"], w["sample_size"]): w for w in record.extra["cell_wall_s"]}
+    space = TuningSession(spec.replace(store=None, store_path=None)).space
     for (algo, s), cell in sorted(results.cells.items()):
         w = walls[(algo, s)]
+        best = cell.best_indices
         print(f"matrix {kernel}/{algo} S={s}: "
               f"median_final_ms={float(np.median(cell.final_values)) * 1e3!r} "
               f"best_final_ms={float(cell.final_values.min()) * 1e3!r} "
               f"n_samples_used={cell.n_samples_used.tolist()} wall_s={w['wall_s']} "
-              f"compile_s={w['compile_s']} measure_s={w['measure_s']}")
+              f"compile_s={w['compile_s']} measure_s={w['measure_s']} "
+              f"winners={None if best is None else best.tolist()}")
         require(cell.n_samples_used.tolist() == [s] * len(cell.n_samples_used),
                 f"matrix {kernel}/{algo} S={s}: samples {cell.n_samples_used.tolist()}")
         require(bool(np.isfinite(cell.final_values).all()),
                 f"matrix {kernel}/{algo} S={s}: finals {cell.final_values.tolist()}")
+        # each experiment's winner: an index row of the space, a config the
+        # space admits
+        require(best is not None and best.shape == (len(cell.final_values), len(space.params))
+                and bool((best >= 0).all() and (best < space.cardinalities).all())
+                and all(space.is_valid(space.decode(row)) for row in best),
+                f"matrix {kernel}/{algo} S={s}: winners {best}")
     prov = record.extra["backend_provenance"]
     print(f"matrix {kernel} cold serial: wall_s={wall:.3f} launches={got} "
           f"materialised={inputs['n']} materialise_s={inputs['s']:.3f} "
@@ -689,12 +701,13 @@ def matrix_cold(kernel: str, tmp: str, telemetry_dir: str | None = None):
 def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
     """A cold run's trace against the run: each measurement stage's trace
     total beside the units' summed ``stage_s`` (read back from the unit
-    journal), which must agree to 1e-6 s, and the trace-only host stages
-    (the searchers' ``propose``); the completed units and experiments
+    journal), which must agree to 1e-6 s, the matrix's ``dataset`` stage
+    among them where the spec has a dataset, and the trace-only host stages (the searchers' ``propose``,
+    the session's own ``session``); the completed units and experiments
     against the plan; the trace's command line in a process of its own."""
     from repro_torch import TuningSession, build_units
     from repro_torch.telemetry import read_run, stage_percentiles, summarize
-    from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
+    from repro_torch.telemetry.events import HOST_STAGES, MATRIX_STAGES, PIPELINE_STAGES
 
     events = read_run(run_dir)
     plans = [e for e in events if e.get("ev") == "plan"]
@@ -727,8 +740,9 @@ def check_trace(spec, run_dir: str, label: str = "harris cold") -> dict:
           f"experiments_completed={counters.get('experiments_completed')}/{n_exp} "
           f"compiles={counters.get('compiles')} store_misses={counters.get('store_misses')} "
           f"invalid={summary['invalid']} cli_exit={cli.returncode}")
-    require(set(totals) == set(PIPELINE_STAGES), f"trace stages {totals}")
-    require(set(host) == {"propose"}, f"trace host stages {host}")
+    want = {*PIPELINE_STAGES, *(MATRIX_STAGES if spec.dataset_size else ())}
+    require(set(totals) == want, f"trace stages {totals}")
+    require(set(host) == {"propose", "session"}, f"trace host stages {host}")
     require(max(diff.values()) <= 1e-6, f"trace stage totals differ from stage_s by {diff}")
     require(plans[0]["units_total"] == len(units) == counters.get("units_completed"),
             f"trace: units planned {plans[0]['units_total']}, built {len(units)}, "

@@ -492,6 +492,9 @@ class TuningSession:
         self.measurement: BaseMeasurement | None = None  # last single-run backend
         self.last_record: RunRecord | None = None
         self.last_unit_plan: list[ExperimentUnit] = []
+        #: the units the last matrix run ran fresh (not served from the
+        #: journal), as the executor returned them
+        self.last_unit_results: list[UnitResult] = []
         #: per unit key of the last matrix run's fresh units, the card a
         #: parallel executor pinned and the worker that ran it
         self.last_unit_devices: dict[str, dict] = {}
@@ -507,18 +510,39 @@ class TuningSession:
         m.set_telemetry(self.telemetry)
         return m
 
-    def _get_dataset(self) -> SampleDataset | None:
+    def _get_dataset(self, stage_acc: dict | None = None) -> SampleDataset | None:
         """The matrix's sample dataset, measured through the raw factory (not
         the store): a warm replay measures it again unless
-        ``spec.dataset_cache`` holds it."""
+        ``spec.dataset_cache`` holds it.
+
+        Generating it is the port's ``dataset`` stage: its seconds are added
+        to ``stage_acc["dataset"]`` (the generating unit's ``stage_s``; under
+        a parallel executor the parent generates it before it ships it, and
+        no unit is charged) and, with telemetry on, emitted as one ``stage``
+        event carrying ``n``, ``cache_hit`` and the inner measurement's own
+        ``stage_s``, with the ``dataset.samples_measured`` counter.  The
+        inner measurement has no sink, so it emits no stage of its own inside
+        this one; it is released once the dataset is in hand."""
         if self._dataset is None and self.spec.dataset_size:
+            t0 = monotonic()
+            measurement = self._factory(self.spec.dataset_gen_seed)
             self._dataset = SampleDataset.generate(
                 self.space,
-                self._factory(self.spec.dataset_gen_seed),
+                measurement,
                 n=self.spec.dataset_size,
                 seed=self.spec.dataset_seed,
                 cache_path=self.spec.dataset_cache,
             )
+            measurement.release()
+            dur = monotonic() - t0
+            if stage_acc is not None:
+                stage_acc["dataset"] = stage_acc.get("dataset", 0.0) + dur
+            tel = self.telemetry
+            if tel.enabled:
+                tel.stage("dataset", dur, n=len(self._dataset),
+                          cache_hit=measurement.n_samples == 0,
+                          stage_s=measurement.stage_times())
+                tel.inc("dataset.samples_measured", measurement.n_samples)
         return self._dataset
 
     def save_store(self) -> None:
@@ -632,6 +656,10 @@ class TuningSession:
         raise ``ValueError``).  Both change how fast measurements happen,
         never what they are, and stay out of cache keys and journal
         namespaces.
+
+        With telemetry on, the session's own work before its units run and
+        after they end is traced as two trace-only ``session`` stage events
+        (``part="setup"`` and ``part="record"``), as :meth:`run` traces its.
         """
         with self.telemetry.span("matrix", cache_key=self.cache_key):
             return self._run_matrix_impl(
@@ -767,15 +795,13 @@ class TuningSession:
             )
             if done:
                 tel.inc("units_skipped_resume", len(done))
-        # snapshot BEFORE fresh units run: under the serial executor their
-        # counter deltas land in this same sink, so totals = pre-run snapshot
-        # + per-unit deltas is correct for every executor (workers ship their
-        # deltas back inside UnitResult.counters)
-        c_pre = tel.counters_snapshot()
+            # the session's own work before its units: the unit plan, the
+            # journal, a resume's shard recovery
+            tel.stage("session", monotonic() - t0, part="setup", executor=name)
         fresh: list[UnitResult] = []
         self.last_unit_devices = {}
+        run_name = name
         if pending:
-            run_name = name
             if EXECUTORS[name].parallel and (workers <= 1 or len(pending) <= 1):
                 if workers > 1:
                     warnings.warn(
@@ -783,6 +809,17 @@ class TuningSession:
                         f"{len(pending)} pending unit(s) for {workers} workers"
                     )
                 run_name = "serial"
+            if EXECUTORS[run_name].parallel:
+                # the parent measures the dataset it ships to the workers,
+                # outside every unit; before the snapshot below, so its
+                # counter lands in the totals
+                self._get_dataset()
+        # snapshot BEFORE fresh units run: under the serial executor their
+        # counter deltas land in this same sink, so totals = pre-run snapshot
+        # + per-unit deltas is correct for every executor (workers ship their
+        # deltas back inside UnitResult.counters)
+        c_pre = tel.counters_snapshot()
+        if pending:
             plan = ExecutionPlan(
                 session=self,
                 units=pending,
@@ -791,6 +828,9 @@ class TuningSession:
                 scheduler=scheduler,
             )
             fresh = run_units(run_name, plan)
+        if tel.enabled:
+            t1 = monotonic()
+        self.last_unit_results = fresh
         cell_results, self._last_cell_walls = merge_unit_results(
             cells, done + fresh
         )
@@ -822,6 +862,10 @@ class TuningSession:
             tel.event("totals", counters=totals)
             self._last_telemetry = {"counters": totals}
         self.last_record = self.make_record(results, wall_s=monotonic() - t0)
+        if tel.enabled:
+            # after its units: the merge, the store, the winners index, the
+            # record
+            tel.stage("session", monotonic() - t1, part="record", executor=name)
         return results
 
     def _record_winner(self) -> None:
@@ -914,6 +958,7 @@ class TuningSession:
             final_values=r.final_values,
             search_best_values=r.search_best_values,
             n_samples_used=r.n_samples_used,
+            best_indices=r.best_indices,
         )
 
     def run_unit(self, unit: ExperimentUnit) -> UnitResult:
@@ -924,14 +969,18 @@ class TuningSession:
         unit — and any split of a cell into units — and get results
         bit-identical to the monolithic per-cell loop.  Each experiment
         builds a fresh measurement (on the card: inputs drawn and copied
-        anew, as the reference materialises them per measurement).
+        anew, as the reference materialises them per measurement) and
+        releases it when the experiment ends.
 
         ``stage_s`` sums the stage clocks of every measurement the unit
         made, the batched RF path's prediction measurements included (the
         reference leaves those out), so it equals the unit's ``stage``
-        trace events.  With telemetry on, the unit runs inside a ``unit``
-        span, each experiment inside an ``experiment`` span, and the
-        counter delta rides back in ``UnitResult.counters``.
+        trace events; the unit that generates the matrix's dataset (a
+        session's first) also carries its ``dataset`` stage.  Each
+        experiment's winner is kept as an index vector of the space
+        (``UnitResult.best_indices``).  With telemetry on, the unit runs
+        inside a ``unit`` span, each experiment inside an ``experiment``
+        span, and the counter delta rides back in ``UnitResult.counters``.
         """
         spec = self.spec
         tel = self.telemetry
@@ -948,11 +997,12 @@ class TuningSession:
         with tel.span(
             "unit", unit=unit.key, algo=unit.algo, sample_size=unit.sample_size
         ):
-            dataset = self._get_dataset()
+            dataset = self._get_dataset(stage_acc)
             n = unit.n_unit_exp
             finals = np.empty(n)
             search_best = np.empty(n)
             n_used = np.empty(n, dtype=np.int64)
+            best = np.empty((n, len(self.space.params)), dtype=np.int64)
             rf_batch = (
                 self._rf_unit_batched(unit, add_stages)
                 if (dataset is not None and unit.algo == "rf")
@@ -985,7 +1035,13 @@ class TuningSession:
                     )
                     search_best[i] = tr.best_value
                     n_used[i] = tr.n_samples
+                    # an experiment whose every sample was a penalty has no
+                    # winner: its row reads -1
+                    best[i] = self.space.encode(tr.best_config) if tr.best_config else -1
                     add_stages(measurement)
+                    # the experiment is done: its staged inputs leave the
+                    # device now, not when the cyclic collector runs
+                    measurement.release()
                 if tel.enabled:
                     tel.inc("experiments_completed")
             if tel.enabled:
@@ -1012,6 +1068,7 @@ class TuningSession:
             wall_s=wall,
             stage_s=stage_acc,
             counters=counters,
+            best_indices=best,
         )
 
     # -- dataset-served paths (paper section VI.B) ---------------------------
@@ -1071,6 +1128,7 @@ class TuningSession:
             best = np.argsort(preds[i], kind="stable")[:top_k]
             run_vals = measurement.measure_batch(self.space.decode_batch(pool[best]))
             add_stages(measurement)
+            measurement.release()
             j = int(np.argmin(run_vals))
             results.append(
                 TuningResult(

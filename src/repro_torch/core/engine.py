@@ -353,6 +353,9 @@ class DiskCachedMeasurement(BaseMeasurement):
         self.n_misses = 0
         self._inner.reset()
 
+    def release(self) -> None:
+        self._inner.release()
+
     def save(self) -> None:
         self._store.save()
 

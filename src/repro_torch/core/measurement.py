@@ -126,6 +126,12 @@ class BaseMeasurement:
         self.n_samples = 0
         self.n_dispatches = 0
 
+    def release(self) -> None:
+        """Free what the measurement holds for its next measurement (a
+        staged backend's device inputs and warmed runners); counters, logs
+        and stage clocks stay, and a later measurement rebuilds what it
+        needs.  Default: nothing is held."""
+
     # -- introspection hooks (wrappers delegate; defaults are inert) ----------
     def provenance(self) -> dict:
         """How this backend produced its numbers (timer, device, repeats...).
@@ -265,6 +271,9 @@ class CachedMeasurement(BaseMeasurement):
         super().reset()
         self._cache.clear()
         self._inner.reset()
+
+    def release(self) -> None:
+        self._inner.release()
 
     def set_telemetry(self, telemetry) -> None:
         super().set_telemetry(telemetry)

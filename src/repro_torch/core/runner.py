@@ -33,6 +33,10 @@ class CellResult:
     final_values: np.ndarray          # (E,) median-of-10 runtimes
     search_best_values: np.ndarray    # (E,) best value observed during search
     n_samples_used: np.ndarray        # (E,) budget audit
+    #: (E, n_params) each experiment's winner as an index vector of the
+    #: space, -1 where it has none (the port's own; ``None`` where a fragment
+    #: was written without)
+    best_indices: np.ndarray | None = None
 
 
 @dataclass
@@ -61,6 +65,8 @@ class MatrixResults:
             arrays[f"final_{i}"] = cell.final_values
             arrays[f"search_{i}"] = cell.search_best_values
             arrays[f"nsamp_{i}"] = cell.n_samples_used
+            if cell.best_indices is not None:
+                arrays[f"best_{i}"] = cell.best_indices
             meta.append({"algo": algo, "sample_size": s, "index": i})
         meta_json = json.dumps({"cells": meta, "optimum": self.optimum})
         np.savez_compressed(path, meta=meta_json, **arrays)
@@ -78,5 +84,6 @@ class MatrixResults:
                 final_values=data[f"final_{i}"],
                 search_best_values=data[f"search_{i}"],
                 n_samples_used=data[f"nsamp_{i}"],
+                best_indices=data[f"best_{i}"] if f"best_{i}" in data.files else None,
             )
         return out

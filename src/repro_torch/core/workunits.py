@@ -132,6 +132,11 @@ class UnitResult:
     entries.  ``counters`` is the unit's telemetry counter delta (compiles,
     store hits, invalid configs...) — observability only, ``{}`` when
     telemetry is disabled, never part of the unit's scientific identity.
+    ``best_indices`` is the port's own: each experiment's winner as an index
+    vector of the space, ``(n_unit_exp, n_params)``, a row of -1 where every
+    sample of the experiment was a penalty; ``None`` for a payload
+    written without it (the reference's, or an older journal entry), never
+    made up.
     """
 
     unit: ExperimentUnit
@@ -141,6 +146,7 @@ class UnitResult:
     wall_s: float = 0.0
     stage_s: dict = field(default_factory=dict)
     counters: dict = field(default_factory=dict)
+    best_indices: np.ndarray | None = None
 
     def __post_init__(self):
         n = self.unit.n_unit_exp
@@ -152,9 +158,17 @@ class UnitResult:
                     f"unit {self.unit.key}"
                 )
             setattr(self, name, arr)
+        if self.best_indices is not None:
+            best = np.asarray(self.best_indices, dtype=np.int64)
+            if best.ndim != 2 or best.shape[0] != n:
+                raise ValueError(
+                    f"best_indices has shape {best.shape}, expected ({n}, "
+                    f"n_params) for unit {self.unit.key}"
+                )
+            self.best_indices = best
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "unit": self.unit.to_dict(),
             "final_values": [float(v) for v in self.final_values],
             "search_best_values": [float(v) for v in self.search_best_values],
@@ -163,9 +177,13 @@ class UnitResult:
             "stage_s": {k: float(v) for k, v in self.stage_s.items()},
             "counters": {k: float(v) for k, v in self.counters.items()},
         }
+        if self.best_indices is not None:
+            d["best_indices"] = self.best_indices.tolist()
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "UnitResult":
+        best = d.get("best_indices")
         return cls(
             unit=ExperimentUnit.from_dict(d["unit"]),
             final_values=np.array(d["final_values"], dtype=np.float64),
@@ -180,7 +198,16 @@ class UnitResult:
             counters={
                 str(k): float(v) for k, v in d.get("counters", {}).items()
             },
+            best_indices=None if best is None else np.array(best, dtype=np.int64),
         )
+
+
+def _concat_best(parts) -> np.ndarray | None:
+    """Fragments' winners in order; ``None`` if any fragment lacks them."""
+    parts = list(parts)
+    if any(p is None for p in parts):
+        return None
+    return np.concatenate(parts)
 
 
 def _sum_stage_s(weighted) -> dict[str, float]:
@@ -272,7 +299,8 @@ def merge_unit_results(
     """Fold unit fragments into full per-cell results, in ``cells`` order.
 
     Fragments merge deterministically by unit key regardless of the order an
-    executor returned them in; every cell must be covered contiguously from
+    executor returned them in (a cell's ``best_indices`` is ``None`` if any
+    of its fragments lacks them); every cell must be covered contiguously from
     0 to its experiment count or a ``ValueError`` names the gap.  Returns
     the cell results plus per-cell cost breakdowns ``{"wall_s", "compile_s",
     "measure_s"}`` (the sum of unit walls — aggregate *search cost*,
@@ -316,6 +344,7 @@ def merge_unit_results(
                 n_samples_used=np.concatenate(
                     [f.n_samples_used for f in frags]
                 ),
+                best_indices=_concat_best(f.best_indices for f in frags),
             )
         )
         walls[(algo, s)] = {
@@ -454,6 +483,10 @@ class UnitJournal:
             ),
             counters=_sum_stage_s(
                 (b.counters, frac) for b, _, frac in pieces
+            ),
+            best_indices=_concat_best(
+                None if b.best_indices is None else b.best_indices[s]
+                for b, s, _ in pieces
             ),
         )
 

@@ -533,6 +533,19 @@ class CudaMeasurement(BaseMeasurement):
             self._pool.shutdown(wait=True)
             self._pool = None
 
+    def release(self) -> None:
+        """Shut the pool down and drop the staged inputs and the warmed
+        runners.  Each runner is a closure over this measurement, so without
+        this a finished measurement keeps its inputs on the device until the
+        cyclic collector finds it.  Values, counters and logs stay; a later
+        measurement stages and warms anew (``n_compiles`` counts those fills
+        again)."""
+        self.close()
+        with self._cache_lock:
+            self._inputs = None
+            self._compiled.clear()
+            self._inflight.clear()
+
     def __del__(self):  # pragma: no cover — interpreter-exit ordering
         try:
             self.close()

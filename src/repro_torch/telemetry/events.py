@@ -33,7 +33,9 @@ Event types:
                      the stage clock was charged (not rounded), so
                      per-stage trace totals reconcile with ``stage_s``.
                      A host stage (:data:`HOST_STAGES`) is trace-only: no
-                     ``stage_s`` counterpart.  Every stage interval
+                     ``stage_s`` counterpart.  A matrix stage
+                     (:data:`MATRIX_STAGES`) is charged to its unit's
+                     ``stage_s`` with the same duration.  Every stage interval
                      (``t - dur``, ``t``) of one writer's thread is
                      disjoint from the others.
 ``plan``             emitted once by the parent when the unit plan is fixed:
@@ -73,7 +75,10 @@ PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 #: and ``finish`` in the engine's ``drive``, with ``algo`` (and ``fit_s`` /
 #: ``acquire_s`` where the searcher has a surrogate); ``session`` —
 #: ``TuningSession.run``'s own work before the search loop
-#: (``part="setup"``) and after the final re-measurement (``part="record"``).
+#: (``part="setup"``) and after the final re-measurement (``part="record"``),
+#: and ``run_matrix``'s before its units run (``part="setup"``: the unit
+#: plan, the journal) and after (``part="record"``: the merge, the store,
+#: the winners index, the record), with ``executor``.
 #: The searchers take their ``fit_s`` / ``acquire_s`` clock reads with the
 #: sink off too: a searcher is built without a sink and its proposal runs
 #: inside ``tell``, so gating them would thread the sink through the
@@ -81,11 +86,22 @@ PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 #: (~0.1 µs) against a step of 0.3–10 ms is below any metric's noise
 HOST_STAGES = ("propose", "session")
 
+#: the port's matrix stages, each charged to the unit that ran it
+#: (``UnitResult.stage_s``) and absent from the reference's trace:
+#: ``dataset`` — ``TuningSession`` generating the matrix's sample dataset
+#: (paper section VI.B) in the first unit a session runs (under a parallel
+#: executor, in the parent before it ships the dataset: no unit), with ``n``,
+#: ``cache_hit`` and ``stage_s`` (the inner measurement's own stage split;
+#: that measurement emits no stage events of its own)
+MATRIX_STAGES = ("dataset",)
+
 #: the port's own counters, which the reference's trace lacks:
 #: ``inputs.cache_hits`` / ``inputs.cache_misses`` count the lookups of the
 #: process's input cache (``cuda_bench/workloads.py``; the reference draws a
-#: measurement's inputs anew every time)
-PORT_COUNTERS = ("inputs.cache_hits", "inputs.cache_misses")
+#: measurement's inputs anew every time); ``dataset.samples_measured``
+#: counts the configs measured to generate a matrix's dataset (0 where its
+#: cache file served it)
+PORT_COUNTERS = ("inputs.cache_hits", "inputs.cache_misses", "dataset.samples_measured")
 
 
 def shard_file(trace_path: str, shard: int) -> str:

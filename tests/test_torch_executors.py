@@ -1,5 +1,6 @@
 """The port's executor layer on the CPU: every executor gives the serial
-loop's matrix byte for byte, journaled units resume with zero measurements,
+loop's matrix byte for byte, each experiment's winner (``best_indices``)
+included, journaled units resume with zero measurements,
 a killed worker's shard store is recovered, and the device executor pins
 its threads to cards — and raises where there is none.
 
@@ -9,6 +10,7 @@ reference in ``tests/test_torch_matrix.py``.  The device executor runs here
 over two CPU devices patched in for the cards.
 """
 
+import json
 import os
 import shutil
 import threading
@@ -41,11 +43,16 @@ SPEC = TuningSpec(
 
 
 def assert_same_cells(a, b):
+    """The same cells, values and per-experiment winners (``best_indices``,
+    the port's own; never absent from a matrix this file runs)."""
     assert set(a.cells) == set(b.cells)
     for key in a.cells:
         for name in ("final_values", "search_best_values", "n_samples_used"):
             np.testing.assert_array_equal(getattr(a.cells[key], name),
                                           getattr(b.cells[key], name))
+        assert a.cells[key].best_indices is not None
+        assert a.cells[key].best_indices.shape == (len(a.cells[key].final_values), 6)
+        np.testing.assert_array_equal(a.cells[key].best_indices, b.cells[key].best_indices)
 
 
 def store_values_bytes(path: str) -> bytes:
@@ -496,3 +503,62 @@ def test_process_failure_still_merges_completed_shards(tmp_path, monkeypatch):
     res = TuningSession(spec).run_matrix(resume=True)
     assert ran == []
     assert_same_cells(clean, res)
+
+
+# ------------------------------------------------- winners through the journal
+
+
+def strip_winners(store, keys) -> None:
+    """Rewrite journal entries as a payload written before ``best_indices``."""
+    for key in keys:
+        payload = json.loads(store.get_meta(key))
+        del payload["best_indices"]
+        store.put_meta(key, json.dumps(payload))
+
+
+def test_unit_result_round_trips_its_winners():
+    unit = repro_torch.ExperimentUnit("ga", 25, 1, 3, 4)
+    best = np.array([[1, 2, 3, 0, 0, 7], [4, 5, 6, 1, 1, 0]], dtype=np.int64)
+    r = repro_torch.UnitResult(unit, np.ones(2), np.ones(2), np.full(2, 25), best_indices=best)
+    d = json.loads(json.dumps(r.to_dict()))
+    assert d["best_indices"] == best.tolist()
+    back = repro_torch.UnitResult.from_dict(d)
+    np.testing.assert_array_equal(back.best_indices, best)
+    assert back.best_indices.dtype == np.int64
+    del d["best_indices"]                       # a payload written before winners
+    old = repro_torch.UnitResult.from_dict(d)
+    assert old.best_indices is None and "best_indices" not in old.to_dict()
+    np.testing.assert_array_equal(old.final_values, r.final_values)
+    with pytest.raises(ValueError, match="best_indices"):
+        repro_torch.UnitResult(unit, np.ones(2), np.ones(2), np.full(2, 25), best_indices=best[:1])
+
+
+def test_winners_survive_the_journal_and_old_payloads_merge_to_none(tmp_path, monkeypatch):
+    """Winners come back from the journal whole, and assembled from
+    fragments journaled under other unit boundaries; a cell with any
+    fragment journaled without them (an older entry) merges to ``None``,
+    its values unchanged, and the other cells keep theirs."""
+    clean = repro_torch.tune_matrix(SPEC)
+    spec = SPEC.replace(store="json", store_path=str(tmp_path / "j.json"))
+    first = TuningSession(spec)
+    first.run_matrix(unit_experiments=1)          # 12 one-experiment fragments
+    assert [r.unit for r in first.last_unit_results] == first.last_unit_plan
+    assert all(r.best_indices.shape == (1, 6) for r in first.last_unit_results)
+    ran = spy_run_unit(monkeypatch)
+    resumed = TuningSession(spec)
+    assert_same_cells(clean, resumed.run_matrix(resume=True))   # covered from fragments
+    assert ran == [] and resumed.last_unit_results == []
+
+    store = MeasurementStore(spec.store_path)
+    journal = TuningSession(spec).unit_journal()
+    ga0 = [k for k in journal.entries() if k.endswith("|ga/S25/E4/e0:1")]
+    assert len(ga0) == 1
+    strip_winners(store, ga0)
+    store.save()
+    old = TuningSession(spec).run_matrix(resume=True)
+    assert ran == []
+    assert old.cells[("ga", 25)].best_indices is None
+    np.testing.assert_array_equal(old.cells[("ga", 25)].final_values,
+                                  clean.cells[("ga", 25)].final_values)
+    for key in (("rs", 25), ("rf", 25)):
+        np.testing.assert_array_equal(old.cells[key].best_indices, clean.cells[key].best_indices)

@@ -13,7 +13,13 @@
   the serial store's values equal the reference's exactly; on the port's
   ``cuda`` backend with ``device="cpu"`` a small matrix equals the
   reference's ``pallas`` backend with both packages' clocks swapped for one
-  that reads one second more each time.
+  that reads one second more each time;
+* each experiment's winner (``best_indices``, the port's own): on the cost
+  model, each equals the winner the reference's own paths find at the
+  experiment's seed (its dataset chunks, batched forest and searchers),
+  each searcher's equals a single ``TuningSession.run`` at that seed and
+  budget, each ``rs`` row is its dataset chunk's least, and ``save`` /
+  ``load`` keep them (a file without them loads as ``None``).
 """
 
 import itertools
@@ -25,6 +31,7 @@ import pytest
 import repro
 import repro_torch
 from repro.core import ExperimentDesign as RefDesign
+from repro.core import MatrixResults as RefMatrixResults
 from repro.core import MeasurementStore as RefStore
 from repro.core import SampleDataset as RefDataset
 from repro.core import TuningSession as RefSession
@@ -292,3 +299,106 @@ def test_cuda_backend_matrix_on_the_cpu_equals_the_pallas_matrix(tmp_path):
     assert prov["backend"] == "cuda" and prov["device"] == "cpu" and prov["launches"] == 0
     walls = session.last_record.extra["cell_wall_s"]
     assert all(w["compile_s"] > 0 and w["measure_s"] > 0 for w in walls)
+
+
+# ------------------------------------------------------ each experiment's winner
+
+
+WINNER_KW = dict(algorithms=("rs", "rf", "ga", "bo_gp", "bo_tpe"),
+                 design_kw=dict(sample_sizes=(12, 25), n_experiments=(3, 2), final_repeats=2))
+
+
+def winners_spec(ref: bool = False):
+    kw = {**SPEC_KW, "algorithms": WINNER_KW["algorithms"]}
+    design = (RefDesign if ref else ExperimentDesign)(**WINNER_KW["design_kw"])
+    return (RefSpec if ref else TuningSpec)(**kw, design=design)
+
+
+@pytest.fixture(scope="module")
+def winners_matrix():
+    session = TuningSession(winners_spec())
+    return session, session.run_matrix()
+
+
+def reference_winners(algo: str, s: int, n_exp: int) -> np.ndarray:
+    """Each experiment's winner of one cell, recomputed through the
+    reference's own paths with the matrix's experiment seeds: its dataset
+    chunks (``rs``), its batched forest (``rf``), its searchers on a fresh
+    measurement of the experiment's seed (the rest)."""
+    from repro.core import ExperimentUnit as RefUnit
+    from repro.core import stable_seed as ref_stable_seed
+    from repro.core.searchers import make_searcher as ref_make_searcher
+
+    spec = winners_spec(ref=True)
+    session = RefSession(spec)
+    if algo == "rf":
+        results = session._rf_unit_batched(RefUnit(algo, s, 0, n_exp, n_exp))
+    elif algo == "rs":
+        results = [session._rs_from_dataset(e, s) for e in range(n_exp)]
+    else:
+        results = []
+        for e in range(n_exp):
+            seed = ref_stable_seed(spec.seed, algo, s, e)
+            searcher = ref_make_searcher(algo, session.space, seed=seed)
+            results.append(searcher.run(session._make_measurement(seed), s,
+                                        dispatch=spec.dispatch))
+    return np.stack([session.space.encode(r.best_config) for r in results])
+
+
+@pytest.mark.parametrize("algo", WINNER_KW["algorithms"])
+def test_matrix_winners_equal_the_references_searchers(winners_matrix, algo):
+    """``best_indices`` (the port's own) of a cost-model matrix holds, per
+    experiment, the winner the reference's searchers find at the same
+    experiment seeds; finals stay the reference's."""
+    session, results = winners_matrix
+    ref = RefSession(winners_spec(ref=True)).run_matrix()
+    for s, e in session.spec.design.rows():
+        cell = results.cells[(algo, s)]
+        assert cell.best_indices.dtype == np.int64 and cell.best_indices.shape == (e, 6)
+        np.testing.assert_array_equal(cell.best_indices, reference_winners(algo, s, e))
+        np.testing.assert_array_equal(cell.final_values, ref.cells[(algo, s)].final_values)
+
+
+@pytest.mark.parametrize("algo", ["ga", "bo_gp", "bo_tpe"])
+def test_searcher_winners_equal_a_single_run(winners_matrix, algo):
+    """A searcher experiment's winner is what one ``TuningSession.run`` of
+    the same searcher finds at the experiment's seed and budget."""
+    session, results = winners_matrix
+    for s, n_exp in session.spec.design.rows():
+        for e in range(n_exp):
+            seed = repro_torch.core.stable_seed(session.spec.seed, algo, s, e)
+            single = TuningSession(TuningSpec(
+                **{**SPEC_KW, "dataset_size": None, "algorithms": None, "seed": seed},
+                searcher=algo, budget=s)).run()
+            np.testing.assert_array_equal(results.cells[(algo, s)].best_indices[e],
+                                          session.space.encode(single.best_config))
+
+
+def test_rs_winners_are_the_dataset_chunks_least(winners_matrix):
+    session, results = winners_matrix
+    dataset = session._get_dataset()
+    for s, n_exp in session.spec.design.rows():
+        for e in range(n_exp):
+            idx, vals = dataset.chunk(e, s)
+            np.testing.assert_array_equal(results.cells[("rs", s)].best_indices[e],
+                                          idx[int(np.argmin(vals))])
+
+
+def test_matrix_results_save_and_load_keep_winners(winners_matrix, tmp_path):
+    """``save`` writes each cell's winners as ``best_{i}``; ``load`` reads
+    them back, and reads a file without them (the reference's, or one
+    written before them) as ``None``."""
+    _, results = winners_matrix
+    path = str(tmp_path / "m.npz")
+    results.save(path)
+    back = repro_torch.MatrixResults.load(path)
+    assert_same_cells(back, results)
+    for key, cell in results.cells.items():
+        np.testing.assert_array_equal(back.cells[key].best_indices, cell.best_indices)
+    ref_path = str(tmp_path / "ref.npz")
+    RefMatrixResults.load(path).save(ref_path)          # the reference's writer
+    old = repro_torch.MatrixResults.load(ref_path)
+    assert_same_cells(old, results)
+    assert all(c.best_indices is None for c in old.cells.values())
+    old.save(str(tmp_path / "again.npz"))
+    assert "best_0" not in np.load(str(tmp_path / "again.npz")).files

@@ -349,7 +349,7 @@ def test_pipelined_matrix_counts_every_fill_in_its_unit(tmp_path):
     # the host stages are trace-only: the measurement's stages are compared
     host = {k for k in trace if k in HOST_STAGES}
     measured = {k: v for k, v in trace.items() if k not in HOST_STAGES}
-    assert host == {"propose"}
+    assert host == {"propose", "session"}
     assert set(measured) == set(stage_s)
     assert all(abs(measured[k] - stage_s[k]) <= 1e-6 for k in measured), (trace, stage_s)
     entries = [f for f in os.listdir(tmp_path / "cc") if f.endswith(".pkl")]

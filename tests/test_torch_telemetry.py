@@ -18,9 +18,12 @@ same input wherever both can take it:
 
 The port traces more than the reference: its host stages (``propose``
 around each searcher step of the engine's loop; ``session`` in single tune
-calls, ``tests/test_torch_host_stages.py``) are set apart before a trace is
-compared with the reference's, and counted; so are its own counters
-(``PORT_COUNTERS``: the input cache's hits and misses).
+calls, ``tests/test_torch_host_stages.py``) and its matrix stage
+(``dataset``: generating the matrix's sample dataset, charged to the
+generating unit's ``stage_s``) are set apart before a trace is compared
+with the reference's, and counted; so are its own counters
+(``PORT_COUNTERS``: the input cache's hits and misses, the dataset's
+measured samples).
 
 Tolerance is exact everywhere: these paths do no floating-point work the
 two packages could round apart.
@@ -72,7 +75,12 @@ from repro_torch.telemetry import (
     summarize,
 )
 from repro_torch.telemetry.__main__ import main as port_cli
-from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES, PORT_COUNTERS
+from repro_torch.telemetry.events import (
+    HOST_STAGES,
+    MATRIX_STAGES,
+    PIPELINE_STAGES,
+    PORT_COUNTERS,
+)
 from repro_torch.telemetry.assert_counters import main as port_assert_counters
 from repro_torch.telemetry.null import _NULL_SPAN
 from repro_torch.telemetry.progress import scan_events
@@ -85,6 +93,8 @@ SPEC = TuningSpec(**SPEC_KW, design=ExperimentDesign(**DESIGN_KW))
 REF_SPEC = RefSpec(**SPEC_KW, design=RefDesign(**DESIGN_KW))
 #: event fields that vary run to run: clocks, writer identity, wall-clocks
 VOLATILE = {"t", "dur", "seq", "src", "wall_s", "compile_s", "measure_s"}
+#: the port's own stage events, which the reference's trace lacks
+PORT_STAGES = (*HOST_STAGES, *MATRIX_STAGES)
 
 
 def counter_clock():
@@ -123,21 +133,35 @@ def split_port_counters(counters: dict) -> tuple[dict, dict]:
 
 
 def split_host_stages(events: list[dict]) -> tuple[list[dict], list[dict]]:
-    """``(shared, host)``: the port's host ``stage`` events (``propose``,
-    ``session``), which the reference's trace lacks, apart from the rest."""
-    host = [e for e in events if e["ev"] == "stage" and e["stage"] in HOST_STAGES]
-    return [e for e in events if not (e["ev"] == "stage" and e["stage"] in HOST_STAGES)], host
+    """``(shared, port)``: the port's own ``stage`` events (the host stages
+    ``propose`` and ``session``, the matrix stage ``dataset``), which the
+    reference's trace lacks, apart from the rest; the rest's counter
+    snapshots and totals without the port's own counters."""
+    port = [e for e in events if e["ev"] == "stage" and e["stage"] in PORT_STAGES]
+    shared = []
+    for e in events:
+        if e["ev"] == "stage" and e["stage"] in PORT_STAGES:
+            continue
+        if e["ev"] in ("counters", "totals"):
+            e = {**e, "counters": split_port_counters(e["counters"])[0]}
+        shared.append(e)
+    return shared, port
 
 
 def assert_one_propose_per_searcher_step(events: list[dict], n_drives: int) -> None:
     """The host stages of a cost-model matrix: a ``propose`` event for each
     searcher step of the engine's loop (``start``, one ``tell`` a round,
-    ``finish``) and nothing else."""
-    _, host = split_host_stages(events)
+    ``finish``), the parent session's own work before and after its units
+    (``session``, ``part="setup"`` then ``part="record"``), and nothing
+    else."""
+    host = [e for e in split_host_stages(events)[1] if e["stage"] in HOST_STAGES]
+    propose = [e for e in host if e["stage"] == "propose"]
     rounds = [e for e in events if e["ev"] == "end" and e.get("span") == "round"]
-    assert {e["stage"] for e in host} == {"propose"}
-    assert len(host) == len(rounds) + 2 * n_drives
-    assert sorted({e["algo"] for e in host}) == sorted({e["algo"] for e in rounds})
+    assert {e["stage"] for e in host} == {"propose", "session"}
+    assert len(propose) == len(rounds) + 2 * n_drives
+    assert sorted({e["algo"] for e in propose}) == sorted({e["algo"] for e in rounds})
+    session = [(e["src"], e["part"]) for e in host if e["stage"] == "session"]
+    assert session == [("main", "setup"), ("main", "record")]
 
 
 @pytest.fixture
@@ -266,7 +290,19 @@ def ref_run(tmp_path, **matrix_kwargs):
 
 
 def unit_counters(journal, units) -> dict:
-    return {u.key: journal.get(u).counters for u in units}
+    """Each unit's journaled counters, the port's own set apart."""
+    return {u.key: split_port_counters(journal.get(u).counters)[0] for u in units}
+
+
+def assert_one_dataset(events: list[dict]) -> None:
+    """The matrix stage of a cost-model matrix: one uncached ``dataset``
+    event of the spec's 200 samples, written by the parent (serial: in the
+    first unit; parallel: before the dataset is shipped to the workers,
+    which measure none), and its counter in the totals."""
+    data = [e for e in split_host_stages(events)[1] if e["stage"] in MATRIX_STAGES]
+    assert len(data) == 1 and data[0]["stage"] == "dataset" and data[0]["src"] == "main"
+    assert data[0]["n"] == 200 and data[0]["cache_hit"] is False and data[0]["stage_s"] == {}
+    assert split_port_counters(totals_of(events))[1] == {"dataset.samples_measured": 200}
 
 
 def test_serial_identical_store_and_trace_covers_every_unit(tmp_path):
@@ -295,9 +331,11 @@ def test_serial_identical_store_and_trace_covers_every_unit(tmp_path):
     shared, _ = split_host_stages(events)
     assert stable_events(shared) == stable_events(ref_events)
     assert_one_propose_per_searcher_step(events, n_drives=4)   # ga's 4 experiments
+    assert_one_dataset(events)
     counters, port = split_port_counters(totals)
     assert counters == totals_of(ref_events)
-    assert port == {}    # the cost model stages no inputs
+    # the cost model stages no inputs; the dataset is measured once
+    assert port == {"dataset.samples_measured": 200}
     assert unit_counters(session.unit_journal(), session.last_unit_plan) == unit_counters(
         RefJournal(ref_session.store, ref_session.journal_namespace()),
         ref_session.last_unit_plan)
@@ -327,7 +365,9 @@ def test_process_executor_identical_store_and_merged_shards(tmp_path, scheduler)
     steals = totals.pop("scheduler.steals", 0)
     ref_totals.pop("scheduler.steals", None)
     counters, port = split_port_counters(totals)
-    assert counters == ref_totals and port == {}
+    assert counters == ref_totals
+    assert port == {"dataset.samples_measured": 200}
+    assert_one_dataset(events)
     assert 0 <= steals <= len(session.last_unit_plan)
     assert unit_counters(session.unit_journal(), session.last_unit_plan) == unit_counters(
         RefJournal(ref_session.store, ref_session.journal_namespace()),
@@ -355,7 +395,9 @@ def test_futures_executor_identical_store(tmp_path):
     events = read_run(str(tmp_path / "run"))
     _, ref_events = ref_run(tmp_path, futures_pool=ThreadPoolExecutor(max_workers=2), **kwargs)
     counters, port = split_port_counters(totals_of(events))
-    assert counters == totals_of(ref_events) and port == {}
+    assert counters == totals_of(ref_events)
+    assert port == {"dataset.samples_measured": 200}
+    assert_one_dataset(events)
     gauges = [e["value"] for e in events if e.get("gauge") == "scheduler.queue_depth"]
     assert sorted(gauges, reverse=True) == list(range(len(gauges) - 1, -1, -1))
 
@@ -378,7 +420,9 @@ def test_device_executor_identical_store(tmp_path, two_cpu_devices, scheduler):
     totals.pop("scheduler.steals", None)
     ref_totals.pop("scheduler.steals", None)
     counters, port = split_port_counters(totals)
-    assert counters == ref_totals and port == {}
+    assert counters == ref_totals
+    assert port == {"dataset.samples_measured": 200}
+    assert_one_dataset(events)
     cards = {d["device"] for d in session.last_unit_devices.values()}
     # static hands each card a payload; under steal a card's thread may
     # find the queue empty
@@ -606,31 +650,41 @@ def test_assert_counters_agrees_with_the_reference_tool(traced_run, capsys):
 # ------------------------------------------------- stage totals on the cuda backend
 
 
-def test_cuda_stage_totals_equal_stage_s(tmp_path):
-    """The cuda backend (plain versions on the CPU, the clock ticking 1.0 a
-    reading): each measurement stage's trace total equals the units' summed
-    ``stage_s`` exactly — rf's prediction measurements included — the only
-    other stage is the trace-only ``propose``, and the report's stage table
-    is the reference's for the same directory."""
-    from repro.analysis.report import _telemetry_section as ref_section
-    from repro_torch.analysis.report import _telemetry_section
-
+def _cuda_matrix(tmp_path, name: str, telemetry=None):
+    """A small ``cuda``-backend matrix on the plain versions with the clock
+    ticking 1.0 a reading; returns the session and its results."""
     spec = TuningSpec(kernel="harris", backend="cuda",
                       backend_kwargs={"x": 64, "y": 128, "device": "cpu", "repeats": 1},
                       algorithms=("rs", "rf", "ga"), dataset_size=40,
                       design=ExperimentDesign(sample_sizes=(12,), n_experiments=(2,),
                                               final_repeats=2),
-                      store="json", store_path=str(tmp_path / "s.json"))
+                      store="json", store_path=str(tmp_path / f"{name}.json"))
     ticks = itertools.count()
     port_clock.set_timer(lambda: float(next(ticks)))
     clear_input_cache()
     try:
-        tel = for_run_dir(str(tmp_path / "run"))
-        session = TuningSession(spec, telemetry=tel)
-        session.run_matrix()
-        tel.close()
+        session = TuningSession(spec, telemetry=telemetry)
+        results = session.run_matrix()
     finally:
         port_clock.set_timer(None)
+    return session, results
+
+
+def test_cuda_stage_totals_equal_stage_s(tmp_path):
+    """The cuda backend (plain versions on the CPU, the clock ticking 1.0 a
+    reading): each measurement stage's trace total, and the matrix's
+    ``dataset`` stage's, equals the units' summed ``stage_s`` exactly — rf's
+    prediction measurements included — the only other stage is the
+    trace-only ``propose``; the dataset stage lies in the first unit,
+    disjoint from every other stage, its inner measurement tracing nothing;
+    results, winners and store values are the same untraced; and the
+    report's stage table is the reference's for the same directory."""
+    from repro.analysis.report import _telemetry_section as ref_section
+    from repro_torch.analysis.report import _telemetry_section
+
+    tel = for_run_dir(str(tmp_path / "run"))
+    session, results = _cuda_matrix(tmp_path, "s", telemetry=tel)
+    tel.close()
     events = read_run(str(tmp_path / "run"))
     journal = session.unit_journal()
     stage_s: dict[str, float] = {}
@@ -638,10 +692,20 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
         for k, v in journal.get(u).stage_s.items():
             stage_s[k] = stage_s.get(k, 0.0) + v
     totals = {k: v["total_s"] for k, v in stage_percentiles(events).items()}
-    measured = {k: v for k, v in totals.items() if k in PIPELINE_STAGES}
-    assert set(measured) == {"screen", "inputs", "compile", "time", "record"}
+    measured = {k: v for k, v in totals.items() if k in (*PIPELINE_STAGES, *MATRIX_STAGES)}
+    assert set(measured) == {"screen", "inputs", "compile", "time", "record", "dataset"}
     assert measured == stage_s
-    assert set(totals) - set(measured) == {"propose"}
+    assert set(totals) - set(measured) == {"propose", "session"}
+    first = session.last_unit_results[0]
+    assert first.unit == session.last_unit_plan[0]
+    assert [set(r.stage_s) >= {"dataset"} for r in session.last_unit_results] == [True, False, False]
+    assert first.stage_s == journal.get(first.unit).stage_s
+    stages = sorted((e["t"] - e["dur"], e["t"], e["stage"]) for e in events if e["ev"] == "stage")
+    assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))     # disjoint
+    (data,) = [e for e in events if e["ev"] == "stage" and e["stage"] == "dataset"]
+    assert data["dur"] == first.stage_s["dataset"] and data["n"] == 40
+    assert data["cache_hit"] is False
+    assert set(data["stage_s"]) == {"screen", "inputs", "compile", "time", "record"}
     counters, port = split_port_counters(totals_of(events))
     assert counters["compiles"] > 0 and counters["experiments_completed"] == 6
     assert counters["store_misses"] > 0
@@ -651,7 +715,15 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
     hits = sum(e["cache_hit"] for e in stagings)
     assert len(stagings) > 0 and len(stagings) - hits <= 1
     assert port == {k: v for k, v in (("inputs.cache_hits", hits),
-                                      ("inputs.cache_misses", len(stagings) - hits)) if v}
+                                      ("inputs.cache_misses", len(stagings) - hits),
+                                      ("dataset.samples_measured", 40)) if v}
+    off_session, off = _cuda_matrix(tmp_path, "off")
+    assert_same_cells(results, off)
+    for key, cell in results.cells.items():
+        np.testing.assert_array_equal(cell.best_indices, off.cells[key].best_indices)
+    assert store_values_bytes(str(tmp_path / "s.json")) == \
+        store_values_bytes(str(tmp_path / "off.json"))
+    assert set(off_session.last_unit_results[0].stage_s) == set(first.stage_s)
     assert _telemetry_section({}, str(tmp_path / "run")) == ref_section(
         {}, str(tmp_path / "run"))
     assert "### Pipeline stage durations" in _telemetry_section({}, str(tmp_path / "run"))
