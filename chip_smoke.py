@@ -592,10 +592,11 @@ def run_searchers() -> dict:
 @contextlib.contextmanager
 def timed_materialize():
     """Counts the input materialisations inside the block and their seconds:
-    every fresh ``CudaMeasurement`` copies its inputs to the card, drawn with
-    numpy on the process's first use of the workload and taken from the
-    input cache after it.  The script wraps the method only to measure that
-    share of a matrix run."""
+    every fresh ``CudaMeasurement`` stages its inputs, drawn with numpy on
+    the process's first use of the workload and taken from the input cache
+    after it; a matrix call copies them to the card once and its other
+    stagings take that copy.  The script wraps the method only to measure
+    that share of a matrix run."""
     import torch
 
     from repro_torch.cuda_bench.workloads import CudaWorkload

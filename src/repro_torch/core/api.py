@@ -36,6 +36,7 @@ Example::
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -655,13 +656,19 @@ class TuningSession:
         compile cache (backends with ``Backend.pipeline``: ``cuda``; others
         raise ``ValueError``).  Both change how fast measurements happen,
         never what they are, and stay out of cache keys and journal
-        namespaces.
+        namespaces.  The call runs inside the backend's ``shared_inputs``
+        scope, where it has one (``cuda``): its measurements in this process
+        (the dataset's and the units') stage their inputs on a card once,
+        and the card holds nothing of them after the call.
 
         With telemetry on, the session's own work before its units run and
         after they end is traced as two trace-only ``session`` stage events
         (``part="setup"`` and ``part="record"``), as :meth:`run` traces its.
         """
-        with self.telemetry.span("matrix", cache_key=self.cache_key):
+        # a worker process is outside this scope and stages per measurement
+        shared = self._backend.shared_inputs
+        with self.telemetry.span("matrix", cache_key=self.cache_key), \
+                (shared() if shared is not None else contextlib.nullcontext()):
             return self._run_matrix_impl(
                 shards,
                 executor=executor,
@@ -968,9 +975,12 @@ class TuningSession:
         with the GLOBAL experiment index ``e``, so any process can run any
         unit — and any split of a cell into units — and get results
         bit-identical to the monolithic per-cell loop.  Each experiment
-        builds a fresh measurement (on the card: inputs drawn and copied
-        anew, as the reference materialises them per measurement) and
-        releases it when the experiment ends.
+        builds a fresh measurement and releases it when the experiment
+        ends.  On the card the measurement stages its inputs: copied anew
+        outside a matrix call; inside one (:meth:`run_matrix` opens the
+        backend's ``shared_inputs`` scope) the call's first staging copies
+        and the others take that copy, the same bytes, which no kernel
+        writes, so every value is what a copy of its own would give.
 
         ``stage_s`` sums the stage clocks of every measurement the unit
         made, the batched RF path's prediction measurements included (the

@@ -23,7 +23,7 @@ of ``repro.core.backends``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, ContextManager
 
 from .engine import DiskCachedMeasurement
 from .measurement import (
@@ -48,7 +48,9 @@ class Backend:
     ``pipeline`` marks whether ``make`` accepts ``pipeline_workers=`` and
     ``compile_cache=`` (the staged compile-prefetch pipeline and the
     persistent compile cache: ``cuda``); the session refuses the knobs on
-    backends without it.
+    backends without it.  ``shared_inputs``, where set, opens a scope in
+    which the backend's measurements share their staged inputs (``cuda``:
+    one device copy per workload and card); a matrix call runs inside one.
     """
 
     name: str
@@ -57,6 +59,7 @@ class Backend:
     true_optimum: Callable[..., tuple[dict, float]] | None = None
     serializable: bool = True
     pipeline: bool = False
+    shared_inputs: Callable[[], ContextManager] | None = None
 
 
 BACKENDS: dict[str, Backend] = {}
@@ -140,6 +143,12 @@ def _make_cuda(
                            pipeline_workers=pipeline_workers, compile_cache=compile_cache)
 
 
+def _cuda_shared_inputs() -> ContextManager:
+    from ..cuda_bench.workloads import shared_inputs
+
+    return shared_inputs()
+
+
 def _cuda_space(kernel: str = "add", **kwargs) -> SearchSpace:
     from ..cuda_bench import DEFAULT_X, DEFAULT_Y, default_space
 
@@ -221,7 +230,8 @@ register_backend(
     )
 )
 register_backend(
-    Backend(name="cuda", make=_make_cuda, default_space=_cuda_space, pipeline=True)
+    Backend(name="cuda", make=_make_cuda, default_space=_cuda_space, pipeline=True,
+            shared_inputs=_cuda_shared_inputs)
 )
 register_backend(Backend(name="timing", make=_make_timing, serializable=False))
 register_backend(Backend(name="callable", make=_make_callable, serializable=False))

@@ -16,7 +16,10 @@ wall-clock into provenance:
   (:meth:`~repro_torch.cuda_bench.workloads.CudaWorkload.materialize`,
   waited for), once a measurement, on its first fill and before that
   fill's compile stage opens; a workload without inputs stages an empty
-  tuple.
+  tuple.  Within one matrix call (a ``shared_inputs`` scope) the copy is
+  made once, by the call's first staging, and the call's other
+  measurements take the same device tensors: the same bytes, which no
+  kernel writes, so every value is what a copy of its own would give.
 * **compile** — one shared library serves every config (tile sizes, t_z,
   block counts are launch arguments), built once per checkout.  What the
   per-geometry cache holds is therefore a geometry's *warmed* runner: a
@@ -59,10 +62,12 @@ error raises and leaves the entry unwritten.
 With a telemetry sink attached (:meth:`BaseMeasurement.set_telemetry`),
 every stage also emits a ``stage`` trace event carrying the same duration
 its clock was charged, so a trace's per-stage totals equal ``stage_s``
-(the ``inputs`` event also carries ``bytes``, ``draw_s``, ``copy_s`` and
-``cache_hit``); the ``compiles`` counter counts cache fills (as
-``n_compiles`` does), ``inputs.cache_hits`` / ``inputs.cache_misses`` the
-input cache's lookups (the port's own),
+(the ``inputs`` event also carries ``bytes``, ``draw_s``, ``copy_s``,
+``cache_hit`` and ``device_reuse``); the ``compiles`` counter counts cache
+fills (as ``n_compiles`` does), ``inputs.cache_hits`` /
+``inputs.cache_misses`` the input cache's lookups and
+``inputs.device_reuses`` the stagings a matrix call's shared copy served
+(the port's own),
 ``invalid.<rule>`` counts penalties by validity rule (``align`` / ``block``
 / ``grid`` / ``smem``) or by failing stage (``compile`` / ``run``), and the
 reference's ``pcache.hits`` / ``pcache.misses`` / ``pcache.stores`` /
@@ -282,10 +287,13 @@ class CudaMeasurement(BaseMeasurement):
         the ``inputs`` stage (draw, copy, and a wait for the copy), so the
         compile stage holds warm launches alone.  The host arrays come from
         the process's input cache (:mod:`.workloads`); the copy is made
-        every time.  With telemetry on, the stage's event carries ``bytes``
-        (all inputs), ``draw_s``, ``copy_s`` and ``cache_hit``, and the
+        every time, but inside a ``shared_inputs`` scope (a matrix call),
+        where the scope's copy made by the call's first staging serves.
+        With telemetry on, the stage's event carries ``bytes`` (all inputs),
+        ``draw_s``, ``copy_s``, ``cache_hit`` and ``device_reuse``, the
         ``inputs.cache_hits`` / ``inputs.cache_misses`` counters count
-        lookups (a workload without inputs makes none)."""
+        lookups (a workload without inputs makes none) and
+        ``inputs.device_reuses`` the stagings the scope's copy served."""
         with self._cache_lock:
             if self._inputs is None:
                 with self._staged("inputs") as attrs, self._device_lock:
@@ -295,6 +303,8 @@ class CudaMeasurement(BaseMeasurement):
                 hit = attrs.get("cache_hit")
                 if hit is not None and self.telemetry.enabled:
                     self.telemetry.inc("inputs.cache_hits" if hit else "inputs.cache_misses")
+                    if attrs["device_reuse"]:
+                        self.telemetry.inc("inputs.device_reuses")
             return self._inputs
 
     def _compile_now(
@@ -537,7 +547,9 @@ class CudaMeasurement(BaseMeasurement):
         """Shut the pool down and drop the staged inputs and the warmed
         runners.  Each runner is a closure over this measurement, so without
         this a finished measurement keeps its inputs on the device until the
-        cyclic collector finds it.  Values, counters and logs stay; a later
+        cyclic collector finds it.  Inside a ``shared_inputs`` scope only
+        this measurement's reference goes: the scope keeps the copy for the
+        call's next measurement.  Values, counters and logs stay; a later
         measurement stages and warms anew (``n_compiles`` counts those fills
         again)."""
         self.close()

@@ -130,7 +130,7 @@ def check_backends() -> list[Finding]:
                 )
             )
             continue
-        for hook in ("default_space", "true_optimum"):
+        for hook in ("default_space", "true_optimum", "shared_inputs"):
             val = getattr(backend, hook)
             if val is not None and not callable(val):
                 findings.append(

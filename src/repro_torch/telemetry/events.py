@@ -65,8 +65,9 @@ SPAN_LEVELS = ("matrix", "cell", "unit", "round", "experiment", "stage")
 
 #: the measurement's stages, each charged to its stage clock (``stage_s``).
 #: ``inputs`` (the workload's inputs, cached on the host, copied to the card
-#: once a measurement, with ``bytes``, ``draw_s``, ``copy_s`` and
-#: ``cache_hit``) is the port's: the reference stages its inputs inside
+#: once a measurement, or once a matrix call where its shared copy serves,
+#: with ``bytes``, ``draw_s``, ``copy_s``, ``cache_hit`` and
+#: ``device_reuse``) is the port's: the reference stages its inputs inside
 #: ``compile``
 PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 
@@ -98,10 +99,13 @@ MATRIX_STAGES = ("dataset",)
 #: the port's own counters, which the reference's trace lacks:
 #: ``inputs.cache_hits`` / ``inputs.cache_misses`` count the lookups of the
 #: process's input cache (``cuda_bench/workloads.py``; the reference draws a
-#: measurement's inputs anew every time); ``dataset.samples_measured``
-#: counts the configs measured to generate a matrix's dataset (0 where its
-#: cache file served it)
-PORT_COUNTERS = ("inputs.cache_hits", "inputs.cache_misses", "dataset.samples_measured")
+#: measurement's inputs anew every time); ``inputs.device_reuses`` counts
+#: the stagings served by a matrix call's shared device copy
+#: (``shared_inputs``); ``dataset.samples_measured`` counts the configs
+#: measured to generate a matrix's dataset (0 where its cache file served
+#: it)
+PORT_COUNTERS = ("inputs.cache_hits", "inputs.cache_misses", "inputs.device_reuses",
+                 "dataset.samples_measured")
 
 
 def shard_file(trace_path: str, shard: int) -> str:

@@ -215,6 +215,58 @@ def test_cuda_matrix_replays_warm_on_the_device_executor(card, tmp_path):
     assert not [f for f in tmp_path.iterdir() if ".shard" in f.name]
 
 
+def test_cuda_matrix_copies_its_image_to_the_card_once(card, tmp_path, monkeypatch):
+    """One harris matrix call at 1000x1001 on the card: the profiler's trace
+    holds one host-to-device copy of the image's bytes, the dataset's first
+    staging makes it and every other staging reuses it (the counter counts
+    the traced ones), the shared tensor still holds the host array's bytes
+    after the call, and the scope holds nothing afterwards."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import ExperimentDesign
+    from repro_torch.cuda_bench import workloads
+    from repro_torch.telemetry import Telemetry, read_events
+
+    seen: list[tuple] = []
+    plain = workloads.CudaWorkload.materialize
+
+    def recorded(self, device, timings=None):
+        timings = {} if timings is None else timings
+        out = plain(self, device, timings)
+        seen.append((out, timings))
+        return out
+
+    monkeypatch.setattr(workloads.CudaWorkload, "materialize", recorded)
+    spec = TuningSpec(
+        kernel="harris", backend="cuda", algorithms=("rs", "rf", "ga"),
+        backend_kwargs={"x": 1000, "y": 1001, "repeats": 2},
+        design=ExperimentDesign(sample_sizes=(12,), n_experiments=(2,), final_repeats=3),
+        dataset_size=40,
+    )
+    image = workloads.make_workload("harris", 1000, 1001).arrays()[0]
+    tel = Telemetry(str(tmp_path / "t.jsonl"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        TuningSession(spec, telemetry=tel).run_matrix()
+        torch.cuda.synchronize()
+    tel.close()
+    prof.export_chrome_trace(str(tmp_path / "prof.json"))
+    with open(tmp_path / "prof.json") as f:
+        events = json.load(f)["traceEvents"]
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    assert [e["args"].get("bytes") for e in h2d].count(image.nbytes) == 1, h2d
+    # the dataset's measurement, each experiment's, and rf's predictions'
+    assert [t["device_reuse"] for _, t in seen] == [0] + [1] * 8
+    totals = [e for e in read_events(str(tmp_path / "t.jsonl")) if e["ev"] == "totals"]
+    assert totals[-1]["counters"]["inputs.device_reuses"] == 8
+    (shared,) = seen[0][0]
+    assert shared.is_cuda and all(out[0] is shared for out, _ in seen)
+    assert shared.cpu().numpy().tobytes() == image.tobytes()
+    assert workloads._DEVICE_INPUTS._entries == {}
+
+
 def test_cuda_fleet_fills_a_miss_on_the_card(card, tmp_path):
     """Serving on the card at a small size: a query for a geometry no one
     tuned misses and queues a cuda job; a fleet worker tunes it on the card

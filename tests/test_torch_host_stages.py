@@ -21,7 +21,13 @@ trace-only.  Held here, on the ``cuda`` backend's plain versions
   the bytes of ``arrays()`` and of the reference's ``materialize()``; other
   fields miss; no kernel writes its inputs, no tensor aliases the cache and
   its arrays are read-only; one lookup counted a measurement, two threads
-  that miss on one key draw once, and an entry over the cap is not kept.
+  that miss on one key draw once, and an entry over the cap is not kept;
+* a matrix call's shared device copy (``shared_inputs``): one copy of each
+  ``(workload, device)`` a call, the rest counted as ``inputs.device_reuses``;
+  values and store bytes equal to the units run one by one outside any
+  scope; nothing held once the call returns or raises; two threads in one
+  scope copy once; distinct workloads stage apart; ``run()`` and a bare
+  ``materialize`` copy every time.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import TuningSession, TuningSpec
+from repro_torch import ExperimentDesign, TuningSession, TuningSpec
+from repro_torch.core import MeasurementStore
 from repro_torch.core import clock as port_clock
 from repro_torch.core.engine import drive
 from repro_torch.core.measurement import CallableMeasurement
@@ -49,6 +56,7 @@ from repro_torch.cuda_bench.workloads import (
     cached_inputs,
     clear_input_cache,
     make_workload,
+    shared_inputs,
 )
 from repro_torch.telemetry import NULL_TELEMETRY, Telemetry, read_events
 from repro_torch.telemetry.events import HOST_STAGES, PIPELINE_STAGES
@@ -135,7 +143,8 @@ def test_inputs_stage_leaves_the_tensors_unchanged():
     timings: dict = {}
     timed = w.materialize("cpu", timings)
     plain = w.materialize("cpu")
-    assert set(timings) == {"draw_s", "copy_s", "cache_hit"}
+    assert set(timings) == {"draw_s", "copy_s", "cache_hit", "device_reuse"}
+    assert timings["device_reuse"] == 0     # outside a scope: a copy of its own
     assert len(timed) == len(plain) == 1
     assert timed[0].dtype == plain[0].dtype and timed[0].shape == (X, Y)
     assert timed[0].numpy().tobytes() == plain[0].numpy().tobytes()
@@ -243,7 +252,7 @@ def test_no_kernel_writes_its_inputs(kernel):
 def test_mandelbrot_bypasses_the_cache(tmp_path):
     w = make_workload("mandelbrot", X, Y)
     got, timings = staged(w)
-    assert got == () and "cache_hit" not in timings
+    assert got == () and "cache_hit" not in timings and "device_reuse" not in timings
     assert cached_inputs(w) is None and workloads._INPUT_CACHE.nbytes == 0
     tel = Telemetry(str(tmp_path / "t.jsonl"))
     m = CudaMeasurement(w, repeats=1, device="cpu")
@@ -365,6 +374,225 @@ def test_an_entry_over_the_cap_is_not_kept(monkeypatch):
         assert timings["cache_hit"] == 0
         assert_bytes(got, w.arrays())
     assert cached_inputs(w) is None and workloads._INPUT_CACHE.nbytes == 0
+
+
+# ------------------------------------------- a matrix call's shared device copy
+
+
+def matrix_spec(tmp_path, name: str) -> TuningSpec:
+    return TuningSpec(kernel="harris", backend="cuda",
+                      backend_kwargs={"x": X, "y": Y, "device": "cpu", "repeats": 1},
+                      algorithms=("rs", "rf", "ga"), dataset_size=40, seed=4,
+                      design=ExperimentDesign(sample_sizes=(12,), n_experiments=(2,),
+                                              final_repeats=2),
+                      store="json", store_path=str(tmp_path / f"{name}.json"))
+
+
+@pytest.fixture
+def stagings(monkeypatch) -> list[tuple]:
+    """Every ``materialize`` from here on, as ``(workload, tensors,
+    timings)``, the untraced dataset measurement's included."""
+    seen: list[tuple] = []
+    plain = CudaWorkload.materialize
+
+    def recorded(self, device, timings=None):
+        timings = {} if timings is None else timings
+        out = plain(self, device, timings)
+        seen.append((self, out, timings))
+        return out
+
+    monkeypatch.setattr(CudaWorkload, "materialize", recorded)
+    return seen
+
+
+def assert_nothing_held() -> None:
+    shared = workloads._DEVICE_INPUTS
+    assert (shared._depth, shared._entries, shared._copying) == (0, {}, {})
+
+
+def test_a_matrix_call_stages_each_workload_once(tmp_path, ticking, stagings):
+    tel = Telemetry(str(tmp_path / "t.jsonl"))
+    TuningSession(matrix_spec(tmp_path, "m"), telemetry=tel).run_matrix()
+    tel.close()
+    # the dataset's measurement, each experiment's, and rf's predictions'
+    assert len(stagings) == 1 + 6 + 2
+    assert [t["device_reuse"] for _, _, t in stagings] == [0] + [1] * (len(stagings) - 1)
+    first = stagings[0][1]
+    assert all(out is first for _, out, _ in stagings)
+    assert_bytes(first, make_workload("harris", X, Y).arrays())
+    counters = [e for e in read_events(str(tmp_path / "t.jsonl"))
+                if e["ev"] == "totals"][-1]["counters"]
+    assert counters["inputs.device_reuses"] == len(stagings) - 1
+    events = stage_events(tmp_path / "t.jsonl", {"inputs"})
+    assert [e["device_reuse"] for e in events] == [1] * (len(stagings) - 1)
+    assert_nothing_held()
+
+
+def test_matrix_values_equal_its_units_run_one_by_one(tmp_path, ticking, stagings):
+    """The matrix call, whose measurements share one device copy, against
+    the same units run through ``run_unit`` outside any scope, each
+    measurement copying its own: every value, winner and stored byte equal."""
+    session = TuningSession(matrix_spec(tmp_path, "matrix"))
+    results = session.run_matrix()
+    n_matrix = len(stagings)
+    alone = TuningSession(matrix_spec(tmp_path, "alone"))
+    units = [alone.run_unit(u) for u in session.last_unit_plan]
+    alone.save_store()
+    assert [t["device_reuse"] for _, _, t in stagings[n_matrix:]] == [0] * n_matrix
+    assert [r.unit for r in units] == [r.unit for r in session.last_unit_results]
+    for mine, theirs in zip(units, session.last_unit_results, strict=True):
+        for name in ("final_values", "search_best_values", "best_indices"):
+            np.testing.assert_array_equal(getattr(mine, name), getattr(theirs, name))
+    for key, cell in results.cells.items():
+        unit = next(r for r in units if (r.unit.algo, r.unit.sample_size) == key)
+        np.testing.assert_array_equal(cell.final_values, unit.final_values)
+
+    def values(name: str) -> bytes:
+        store = MeasurementStore(str(tmp_path / f"{name}.json"))
+        return json.dumps(sorted(store.items()), sort_keys=True).encode()
+
+    assert values("matrix") == values("alone")
+
+
+@pytest.mark.parametrize("ends", ["returns", "raises"])
+def test_the_scope_holds_nothing_after_the_call(tmp_path, monkeypatch, stagings, ends):
+    plain_final = CudaMeasurement.measure_final
+    if ends == "raises":
+        def fail(self, config, repeats=10):
+            raise RuntimeError("the final re-measurement failed")
+
+        monkeypatch.setattr(CudaMeasurement, "measure_final", fail)
+        with pytest.raises(RuntimeError, match="final re-measurement"):
+            TuningSession(matrix_spec(tmp_path, ends)).run_matrix()
+    else:
+        TuningSession(matrix_spec(tmp_path, ends)).run_matrix()
+    assert stagings and stagings[0][2]["device_reuse"] == 0
+    assert_nothing_held()
+    monkeypatch.setattr(CudaMeasurement, "measure_final", plain_final)
+    n = len(stagings)
+    TuningSession(matrix_spec(tmp_path, "again")).run_matrix()
+    again = [t["device_reuse"] for _, _, t in stagings[n:]]
+    assert again[0] == 0 and sum(again) == len(again) - 1   # the next call copies anew, once
+    assert_nothing_held()
+
+
+def test_two_threads_in_one_scope_copy_once(monkeypatch):
+    copies = []
+    plain_fence = workloads.fence
+
+    def slow_fence(t):
+        copies.append(t)
+        time.sleep(0.3)   # the other thread asks while this one copies
+        plain_fence(t)
+
+    monkeypatch.setattr(workloads, "fence", slow_fence)
+    w = make_workload("harris", X, Y)
+    w.arrays()
+    start = threading.Barrier(2)
+    got: list = [None, None]
+
+    def stage(i):
+        start.wait()
+        got[i] = staged(w)
+
+    with shared_inputs():
+        threads = [threading.Thread(target=stage, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert len(copies) == 1
+        assert sorted(timings["device_reuse"] for _, timings in got) == [0, 1]
+        assert got[0][0][0] is got[1][0][0]
+        assert_bytes(got[0][0], w.arrays())
+    assert_nothing_held()
+
+
+def test_distinct_workloads_stage_separately():
+    ws = [make_workload("harris", X, Y), make_workload("harris", X, Y, input_seed=1),
+          make_workload("harris", 2 * X, Y), make_workload("add", X, Y)]
+    with shared_inputs():
+        with shared_inputs():   # an inner scope owns nothing
+            first = [staged(w) for w in ws]
+        again = [staged(w) for w in ws]
+        assert [t["device_reuse"] for _, t in first] == [0] * len(ws)
+        assert [t["device_reuse"] for _, t in again] == [1] * len(ws)
+        for w, (a, _), (b, _) in zip(ws, first, again, strict=True):
+            assert a is b
+            assert_bytes(a, w.arrays())
+        assert len(workloads._DEVICE_INPUTS._entries) == len(ws)
+        assert not np.shares_memory(first[0][0][0].numpy(), first[1][0][0].numpy())
+    assert_nothing_held()
+    assert staged(ws[0])[1]["device_reuse"] == 0
+
+
+def test_shared_copies_hold_under_thread_contention():
+    """More threads than cores stage four workloads in random order, each
+    inside nested scopes of its own, while an outer scope stays open and the
+    interpreter switches threads often: each workload is copied once, every
+    staging gives the drawn bytes, and nothing is held after the outer
+    scope (a lost update would break one of these)."""
+    import os
+    import random
+    import sys
+
+    ws = [make_workload("harris", X, Y, input_seed=s) for s in range(4)]
+    want = {w.cache_key: w.arrays()[0].tobytes() for w in ws}
+    n_threads = 2 * (os.cpu_count() or 2) + 2
+    faults: list = []
+    copies: list = []
+
+    def stage(seed):
+        rng = random.Random(seed)
+        for _ in range(10):
+            with shared_inputs():
+                for _ in range(4):
+                    w = rng.choice(ws)
+                    timings: dict = {}
+                    got = w.materialize("cpu", timings)[0].numpy().tobytes()
+                    if not timings["device_reuse"]:
+                        copies.append(w.cache_key)
+                    if got != want[w.cache_key]:
+                        faults.append(w.cache_key)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with shared_inputs():
+            threads = [threading.Thread(target=stage, args=(i,)) for i in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+            held = len(workloads._DEVICE_INPUTS._entries)
+    finally:
+        sys.setswitchinterval(interval)
+    assert faults == []
+    assert sorted(copies) == sorted(set(copies)) and held == len(set(copies))
+    assert_nothing_held()
+
+
+def test_run_and_bare_materialize_copy_every_time(tmp_path, stagings):
+    w = make_workload("harris", X, Y)
+    (a, ta), (b, tb) = staged(w), staged(w)
+    assert (ta["device_reuse"], tb["device_reuse"]) == (0, 0)
+    assert not np.shares_memory(a[0].numpy(), b[0].numpy())
+    tel = Telemetry(str(tmp_path / "t.jsonl"))
+    for _ in range(2):
+        TuningSession(TuningSpec(kernel="harris", backend="cuda",
+                                 backend_kwargs={"x": X, "y": Y, "device": "cpu",
+                                                 "repeats": 1},
+                                 searcher="ga", budget=BUDGETS["ga"], seed=5,
+                                 final_repeats=2), telemetry=tel).run()
+    tel.close()
+    assert [t["device_reuse"] for _, _, t in stagings] == [0] * 4
+    events = read_events(str(tmp_path / "t.jsonl"))
+    assert [e["device_reuse"] for e in events
+            if e["ev"] == "stage" and e["stage"] == "inputs"] == [0, 0]
+    assert not any("inputs.device_reuses" in e.get("counters", {}) for e in events)
+    assert_nothing_held()
 
 
 # ---------------------------------------------------- propose and session stages

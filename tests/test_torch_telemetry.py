@@ -22,8 +22,8 @@ calls, ``tests/test_torch_host_stages.py``) and its matrix stage
 (``dataset``: generating the matrix's sample dataset, charged to the
 generating unit's ``stage_s``) are set apart before a trace is compared
 with the reference's, and counted; so are its own counters
-(``PORT_COUNTERS``: the input cache's hits and misses, the dataset's
-measured samples).
+(``PORT_COUNTERS``: the input cache's hits and misses, the stagings a
+matrix call's shared device copy served, the dataset's measured samples).
 
 Tolerance is exact everywhere: these paths do no floating-point work the
 two packages could round apart.
@@ -675,7 +675,8 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
     reading): each measurement stage's trace total, and the matrix's
     ``dataset`` stage's, equals the units' summed ``stage_s`` exactly — rf's
     prediction measurements included — the only other stage is the
-    trace-only ``propose``; the dataset stage lies in the first unit,
+    trace-only ``propose``; the port's counters are exactly the stagings'
+    input-cache lookups and shared-copy reuses and the dataset's samples; the dataset stage lies in the first unit,
     disjoint from every other stage, its inner measurement tracing nothing;
     results, winners and store values are the same untraced; and the
     report's stage table is the reference's for the same directory."""
@@ -714,8 +715,13 @@ def test_cuda_stage_totals_equal_stage_s(tmp_path):
     stagings = [e for e in events if e["ev"] == "stage" and e["stage"] == "inputs"]
     hits = sum(e["cache_hit"] for e in stagings)
     assert len(stagings) > 0 and len(stagings) - hits <= 1
+    # one copy to the device a matrix call: the dataset's untraced
+    # measurement makes it, and every traced staging takes that copy
+    reuses = sum(e["device_reuse"] for e in stagings)
+    assert reuses == len(stagings)
     assert port == {k: v for k, v in (("inputs.cache_hits", hits),
                                       ("inputs.cache_misses", len(stagings) - hits),
+                                      ("inputs.device_reuses", reuses),
                                       ("dataset.samples_measured", 40)) if v}
     off_session, off = _cuda_matrix(tmp_path, "off")
     assert_same_cells(results, off)
