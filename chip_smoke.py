@@ -147,19 +147,10 @@ Phases (any failure exits non-zero and prints no result line):
    the card (exit 0, loss falls); one full-size dry-run cell, yi-34b
    ``train_4k`` on the single 16 x 16 fake mesh, in a process of its own (its
    FLOPs, collective bytes and peak GiB per device);
-4k. the compile cache, the pipeline and the last drivers: a cold
-   ``tune_matrix`` of mandelbrot at 8192x8192 (``rs`` and ``ga``, S = 25,
-   2 experiments) with ``compile_cache`` and ``pipeline_workers=2`` in a
-   process of its own, then the same spec in a fresh process against the
-   warm cache on a fresh store (every config measured again): the cold run
-   publishes each fill once, the warm run fills only geometries the cold
-   run never visited (its ``ga`` follows the card's timings; with the cold
-   run's path it fills none) and serves the rest, and a fresh measurement
-   there re-measures every config the cold run stored with 0 fills and as
-   many pcache hits as the cold run stored; each run's wall seconds,
-   the trace's cache counters and its launches; ``benchmarks.run``'s
-   ``pipeline_overlap`` rows (identical values); that no harris geometry the
-   screen passes is refused by its launch; while the card measures,
+4k. the last drivers: a ``tune_matrix`` of mandelbrot at 8192x8192
+   (``rs`` and ``ga``, S = 25, 2 experiments) in a process of its own, its
+   wall seconds, fills and launches; that no harris geometry the screen
+   passes is refused by its launch; while the card measures,
    ``python -m repro_torch.benchmarks.hillclimb`` on olmoe-1b-7b
    ``train_4k`` (three records, the table, the no-op line naming H2) and
    ``python -m repro_torch.examples.tune_sharding --arch olmoe-1b-7b
@@ -2245,80 +2236,59 @@ def run_shard_phase(tmp: str) -> dict:
 
 # ---------------------------------------------------------------- phase 4k
 
-#: phase 4k: the persistent compile cache and the prefetch pipeline on the
-#: card: mandelbrot at 8192x8192, rs and ga at S = 25 with 2 experiments
-CACHE_DESIGN = "ExperimentDesign(sample_sizes=(25,), n_experiments=(2,), final_repeats=10)"
-CACHE_WORKERS = 2
-#: one ``tune_matrix`` with both knobs in a process of its own (a cold
-#: process sees the cache only through its directory); prints its wall
-#: seconds, the trace's cache counters, the cache's entries and the
-#: kernels' launch counts of the run
-CACHE_RUN = f"""
-import json, os, sys, time
-import numpy as np
+#: phase 4k: the matrix the experiments page reads: mandelbrot at
+#: 8192x8192, rs and ga at S = 25 with 2 experiments
+EXPERIMENTS_DESIGN = "ExperimentDesign(sample_sizes=(25,), n_experiments=(2,), final_repeats=10)"
+#: one ``tune_matrix`` in a process of its own; prints its wall seconds, its
+#: fills, its finals and the kernels' launch counts of the run
+EXPERIMENTS_RUN = f"""
+import json, sys, time
 import torch
 from repro_torch import ExperimentDesign, TuningSpec, tune_matrix
 from repro_torch.kernels import LAUNCHES
 from repro_torch.telemetry import read_run
-out_dir, store, cache, trace = sys.argv[1:5]
+out_dir, store, trace = sys.argv[1:4]
 for c in LAUNCHES.values():
     c.n = 0
 spec = TuningSpec(kernel="mandelbrot", backend="cuda", algorithms=("rs", "ga"),
-                  design={CACHE_DESIGN}, store="json", store_path=store,
+                  design={EXPERIMENTS_DESIGN}, store="json", store_path=store,
                   cache_key="mandelbrot/{CARD_TAG}")
 t0 = time.perf_counter()
-res = tune_matrix(spec, out_dir=out_dir, telemetry_dir=trace,
-                  pipeline_workers={CACHE_WORKERS}, compile_cache=cache)
+res = tune_matrix(spec, out_dir=out_dir, telemetry_dir=trace)
 torch.cuda.synchronize()
 wall = time.perf_counter() - t0
 totals = [e for e in read_run(trace) if e["ev"] == "totals"][-1]["counters"]
-replay = None
-if len(sys.argv) > 5:        # every config the cold run measured, on a fresh instance
-    from repro_torch.cuda_bench import CudaMeasurement, make_workload
-    with open(sys.argv[5]) as f:
-        keys = json.load(f)["values"]
-    # keys are <namespace>|<config>, finals <namespace>|<config>|final<n>
-    cfgs = [{{k: int(v) for k, v in (kv.split("=") for kv in key.split("|")[1].split(","))}}
-            for key in keys if key.count("|") == 1]
-    m = CudaMeasurement(make_workload("mandelbrot"), repeats=1, compile_cache=cache,
-                        pipeline_workers={CACHE_WORKERS})
-    vals = m.measure_batch(cfgs)
-    m.close()
-    replay = {{"configs": len(cfgs), "n_compiles": m.n_compiles,
-              "pcache_hits": m.n_pcache_hits, "finite": int(np.isfinite(vals).sum())}}
 print(json.dumps({{
-    "replay": replay,
     "wall_s": wall,
-    "counters": {{k: totals.get(k, 0) for k in ("compiles", "compile_cache_hits", "pcache.hits",
-                                              "pcache.misses", "pcache.stores", "pcache.waits")}},
-    "entries": sorted(f for f in os.listdir(cache) if f.endswith(".pkl")),
+    "compiles": totals.get("compiles", 0),
     "cells": {{f"{{a}}/S={{s}}": c.final_values.tolist() for (a, s), c in res.cells.items()}},
     "launches": {{k: c.n for k, c in LAUNCHES.items()}},
 }}))
 """
 
 
-def cache_run(tmp: str, label: str, *replay: str) -> dict:
+def experiments_matrix(tmp: str) -> dict:
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CACHE_RUN, os.path.join(tmp, f"m_{label}"),
-                           os.path.join(tmp, f"{label}.json"), os.path.join(tmp, "cc"),
-                           os.path.join(tmp, f"trace_{label}"), *replay],
+    proc = subprocess.run([sys.executable, "-c", EXPERIMENTS_RUN, os.path.join(tmp, "matrix"),
+                           os.path.join(tmp, "store.json"), os.path.join(tmp, "trace")],
                           capture_output=True, text=True, timeout=600, cwd=tmp,
                           env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    require(proc.returncode == 0, f"cache {label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    require(proc.returncode == 0, f"experiments matrix: exit {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     out["process_s"] = time.perf_counter() - t0
-    print(f"experiments cache mandelbrot 8192x8192 {label} (pipeline_workers={CACHE_WORKERS}): "
-          f"wall_s={out['wall_s']:.3f} process_s={out['process_s']:.3f} "
-          f"counters={out['counters']} entries={len(out['entries'])} launches={out['launches']}")
-    require(all(math.isfinite(v) for vals in out["cells"].values() for v in vals),
-            f"cache {label}: finals {out['cells']}")
+    print(f"experiments matrix mandelbrot 8192x8192: wall_s={out['wall_s']:.3f} "
+          f"process_s={out['process_s']:.3f} compiles={out['compiles']} "
+          f"launches={out['launches']}")
+    require(out["compiles"] > 0 and all(math.isfinite(v) for vals in out["cells"].values()
+                                        for v in vals),
+            f"experiments matrix: compiles {out['compiles']}, finals {out['cells']}")
     return out
 
 
 def run_experiments_phase(tmp: str) -> dict:
-    """Phase 4k: the compile cache and the pipeline on the card, then the
-    hill-climb, the sharding tuner and the experiments page.  Every part
+    """Phase 4k: a matrix on the card, then the hill-climb, the sharding
+    tuner and the experiments page over that matrix.  Every part
     runs in a process of its own, which sets the counts to 0 when it starts
     and reports them; the phase's count is their sum.  The two host-only
     drivers run while the card measures."""
@@ -2340,45 +2310,15 @@ def experiments_parts(tmp: str, hill_proc, tune_proc) -> dict:
 
     parts, out = {}, {}
 
-    # 4k a: cold, then a fresh process against the warm cache, on fresh
-    # stores (every config is measured again)
-    cold = cache_run(tmp, "cold")
-    warm = cache_run(tmp, "warm", os.path.join(tmp, "cold.json"))
-    parts["cache_cold"], parts["cache_warm"] = cold.pop("launches"), warm.pop("launches")
-    c, w = cold["counters"], warm["counters"]
-    new = sorted(set(warm["entries"]) - set(cold["entries"]))
-    require(c["compiles"] > 0 and c["pcache.stores"] == c["compiles"] == len(cold["entries"]),
-            f"cache cold: every fill published once: {c}, {len(cold['entries'])} entries")
-    require(parts["cache_cold"]["mandelbrot"] > 0, f"cache cold launched {parts['cache_cold']}")
-    # a geometry the cold run filled is served, never filled again; one that
-    # only this run's ga visits is filled and published once
-    require(w["compiles"] == w["pcache.stores"] == len(new) and w["pcache.hits"] > 0,
-            f"cache warm: {w}, {len(new)} new entries")
-    require(w["pcache.misses"] == w["compiles"], f"cache warm: a miss not filled: {w}")
-    r = warm["replay"]
-    print(f"experiments cache replay of the cold run's {r['configs']} configs on a fresh "
-          f"instance: n_compiles={r['n_compiles']} pcache_hits={r['pcache_hits']} "
-          f"(the cold run stored {c['pcache.stores']})")
-    require(r["n_compiles"] == 0 and r["pcache_hits"] == c["pcache.stores"]
-            and r["finite"] > 0, f"cache replay: {r} against cold {c}")
-    print(f"experiments cache warm: n_compiles={w['compiles']} pcache.hits={w['pcache.hits']} "
-          f"(cold stored {c['pcache.stores']}, served {c['pcache.hits']}); "
-          f"{len(new)} geometries only the warm run's ga visited; "
-          f"wall ratio warm/cold {warm['wall_s'] / cold['wall_s']:.3f}")
-    out["cache"] = {"cold": cold, "warm": warm, "new_geometries": len(new)}
-    # 4k a'': the reference's pipeline table (a synthetic first-call delay,
-    # workers 0 against 4, host only)
-    from repro_torch.benchmarks import run
-
-    rows = csv_rows(run.table_pipeline_overlap)
-    require([n for n, _, _ in rows] == ["pipeline_overlap/prefetch_off",
-                                        "pipeline_overlap/prefetch_on"]
-            and rows[1][2].endswith("identical=1"), f"pipeline_overlap rows: {rows}")
-    out["pipeline_overlap"] = {n: dict(us=v, derived=dv) for n, v, dv in rows}
+    # 4k a: the matrix the page reads
+    matrix = experiments_matrix(tmp)
+    parts["matrix"] = matrix.pop("launches")
+    require(parts["matrix"]["mandelbrot"] > 0, f"experiments matrix launched {parts['matrix']}")
+    out["matrix"] = matrix
     # 4k a': a harris launch the card refuses for its geometry.  Every
     # config launches 64 threads a block, and the screen holds the grid to
     # CUDA's limits, so no geometry the screen passes is refused
-    print("experiments cache harris invalid: none exists (64 threads a block for every "
+    print("experiments harris invalid: none exists (64 threads a block for every "
           f"config; the screen holds the grid to CUDA's limits; refusals "
           f"{sorted(_build.CONFIG_ERRORS)} reach no screened geometry)")
 
@@ -2411,7 +2351,7 @@ def experiments_parts(tmp: str, hill_proc, tune_proc) -> dict:
     # 4k d: the page over 4k's matrix, 4j's dry-run records and 4k's perf records
     page = os.path.join(tmp, "EXPERIMENTS_torch.md")
     md, parts["make_experiments_md"] = counted_cli(
-        "repro_torch.benchmarks.make_experiments_md", "--matrix-dir", os.path.join(tmp, "m_cold"),
+        "repro_torch.benchmarks.make_experiments_md", "--matrix-dir", os.path.join(tmp, "matrix"),
         "--dryrun-dir", os.path.join(ROOT, "results", "dryrun_torch"),
         "--perf-dir", os.path.join(ROOT, "results", "perf_torch"), "--out", page, timeout=300)
     require(md.returncode == 0 and os.path.exists(page),
@@ -2429,7 +2369,7 @@ def experiments_parts(tmp: str, hill_proc, tune_proc) -> dict:
     require(not any(w in text for w in ("v5e", "TPU", "197 TF")), "the page names a TPU figure")
     require(all(c is not None for c in parts.values()), f"4k parts without counts: {parts}")
     out["launches_by_part"] = parts
-    out["launches"] = got = {k: sum(p[k] for p in parts.values()) for k in parts["cache_cold"]}
+    out["launches"] = got = {k: sum(p[k] for p in parts.values()) for k in parts["matrix"]}
     print(f"experiments launches by part: {parts}")
     require(all(parts[p][k] == 0 for p in ("hillclimb", "tune_sharding", "make_experiments_md")
                 for k in parts[p]), f"the host-only drivers launched kernels: {parts}")

@@ -152,12 +152,13 @@ def _telemetry_section(results: dict, results_dir: str) -> str:
 
 def _spec_fingerprint(spec: dict) -> str:
     """Stable 8-hex id of a recorded spec (storage fields and the
-    pipeline_workers / compile_cache speed knobs excluded, matching the
-    unit journal's namespace convention)."""
+    reference's speed knobs excluded, matching its unit journal's namespace
+    convention)."""
     d = {k: v for k, v in spec.items() if k not in ("store", "store_path")}
     if isinstance(d.get("backend_kwargs"), dict):
         d["backend_kwargs"] = {
             k: v for k, v in d["backend_kwargs"].items()
+            # knobs only the reference's records carry; the port has none
             if k not in ("pipeline_workers", "compile_cache")
         }
     try:

@@ -30,11 +30,7 @@ on or off.  ``--serve-dir`` folds each combo's winners into a serving store.
 
 The card is the default device; ``--device cpu`` runs the kernels' plain
 versions on the CPU (``--backend cuda`` only), and a host with no card
-raises otherwise.  ``--pipeline-workers N`` prefetches each batch's
-per-geometry warm-up on N pool threads, and ``--compile-cache DIR`` shares
-each geometry's compile outcome across worker processes and runs (a warm
-re-run fills nothing); both apply to ``--backend cuda`` only, and results
-are identical either way.
+raises otherwise.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.benchmarks.paper_matrix --design smoke \\
@@ -119,9 +115,7 @@ def run_combo(bench: str, chip_name: str, design: ExperimentDesign, out_dir: str
               store: str = "json", backend: str = "cuda",
               executor: str | None = None, max_workers: int | None = None,
               resume: bool = False,
-              pipeline_workers: int | None = None,
               scheduler: str = "steal",
-              compile_cache: str | None = None,
               telemetry_dir: str | None = None,
               progress: bool = False,
               backend_kwargs: dict | None = None) -> None:
@@ -139,8 +133,7 @@ def run_combo(bench: str, chip_name: str, design: ExperimentDesign, out_dir: str
     try:
         tune_matrix(spec, shards=shards, executor=executor,
                     max_workers=max_workers, resume=resume,
-                    pipeline_workers=pipeline_workers,
-                    scheduler=scheduler, compile_cache=compile_cache,
+                    scheduler=scheduler,
                     out_dir=out_dir, verbose=verbose,
                     telemetry_dir=telemetry_dir)
     finally:
@@ -212,11 +205,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--max-workers", type=int, default=None,
                     help="worker count for parallel executors (units fan "
                          "out, including within-cell splits of big-E rows)")
-    ap.add_argument("--pipeline-workers", type=int, default=None,
-                    help="compile-prefetch pool threads for the staged "
-                         "cuda measurement pipeline (0/omitted: inline "
-                         "compile-then-time; results are identical either "
-                         "way)")
     ap.add_argument("--scheduler", choices=("steal", "static"),
                     default="steal",
                     help="how parallel executors hand units to workers: "
@@ -224,11 +212,6 @@ def main(argv: list[str] | None = None) -> int:
                          "lets workers pull from a shared queue; 'static' "
                          "is the one-partition-per-worker schedule (results "
                          "are bit-identical either way)")
-    ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="persistent on-disk compile cache for the staged "
-                         "cuda backend, shared across worker processes and "
-                         "across runs (a warm re-run fills nothing, even "
-                         "from a cold process)")
     ap.add_argument("--resume", action="store_true",
                     help="replay units journaled in the measurement store "
                          "by an interrupted run (zero re-measurements)")
@@ -310,9 +293,7 @@ def main(argv: list[str] | None = None) -> int:
                       shards=args.shards, store=args.store,
                       backend=args.backend, executor=args.executor,
                       max_workers=args.max_workers, resume=args.resume,
-                      pipeline_workers=args.pipeline_workers,
                       scheduler=args.scheduler,
-                      compile_cache=args.compile_cache,
                       telemetry_dir=(
                           out_dir if (args.telemetry or args.progress) else None
                       ),

@@ -189,66 +189,6 @@ def table_cuda_backend(budget: int = 10) -> None:
     )
 
 
-def table_pipeline_overlap(n_cfgs: int = 8, compile_ms: float = 25.0) -> None:
-    """Compile-prefetch pipeline on a compile-bound synthetic workload: the
-    first call per geometry sleeps ``compile_ms`` (standing in for the
-    first warmed launch), so the whole batch's compile cost is the serial
-    floor the prefetcher exists to overlap.  Values must be identical
-    pipelined or not; the wall-clock ratio is the tracked number.  The
-    port's compile stage is a launch, and every launch holds the device
-    lock against timed repeats and other launches, so the pool overlaps
-    only the host part (the persistent cache's get/claim/wait and building
-    the inputs): here the ratio stays near 1."""
-    import time
-
-    from ..cuda_bench import CudaMeasurement
-    from ..cuda_bench.workloads import CudaWorkload
-    from ..kernels.common import KernelBenchSpec
-
-    seen: set = set()
-
-    def run(inputs, cfg, x, y, device):
-        key = tuple(sorted(cfg.items()))
-        if key not in seen:          # "compilation": first call per geometry
-            seen.add(key)
-            time.sleep(compile_ms / 1e3)
-        return None
-
-    bench = KernelBenchSpec(
-        name="synthetic_compile", n_inputs=0,
-        make_inputs=lambda x, y, seed: (), run=run,
-    )
-    cfgs = [
-        dict(t_x=1 << i, t_y=1, t_z=1, w_x=1, w_y=1, w_z=1)
-        for i in range(n_cfgs)
-    ]
-    walls, values = {}, {}
-    for workers in (0, 4):
-        seen.clear()
-        # deterministic timing-stage clock: the VALUES must be identical
-        # pipelined or not (only the wall-clock may differ), and a real
-        # clock could never show that
-        ticks = iter(range(10**9))
-        m = CudaMeasurement(
-            # tall enough that the screen passes every config's block
-            CudaWorkload(bench=bench, x=8 << (n_cfgs - 1), y=128),
-            repeats=1, warmup=1, device="cpu", pipeline_workers=workers,
-            timer=lambda: float(next(ticks)),
-        )
-        t0 = clock.monotonic()
-        values[workers] = m.measure_batch(cfgs)
-        walls[workers] = clock.monotonic() - t0
-        m.close()
-    same = int(np.array_equal(values[0], values[4]))
-    print(
-        f"pipeline_overlap/prefetch_off,{walls[0]*1e6:.0f},configs={n_cfgs}"
-    )
-    print(
-        f"pipeline_overlap/prefetch_on,{walls[4]*1e6:.0f},"
-        f"speedup={walls[0]/max(walls[4], 1e-9):.2f}x identical={same}"
-    )
-
-
 def table_scheduler_tail(slow_ms: float = 30.0, workers: int = 2) -> None:
     """Work-stealing vs static scheduling around a straggler cell: one cell's
     experiments each pay a slow synthetic dispatch (standing in for a
@@ -428,7 +368,6 @@ def main(argv: list[str] | None = None) -> int:
     table_engine_dispatch()
     table_kernels()
     table_cuda_backend()
-    table_pipeline_overlap()
     table_scheduler_tail()
     table_telemetry_overhead()
     print("# paper-claims validation")

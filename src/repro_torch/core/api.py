@@ -238,12 +238,13 @@ class TuningSpec:
     def default_cache_key(self) -> str:
         """Store namespace: kernel, backend and every backend kwarg that
         changes what a measurement MEANS (problem size, repeats, device...).
-        Non-scalar kwargs collapse to a type token.  The reference's speed
-        knobs change how fast measurements happen, never what they are, so
-        they stay out, as they do in the reference."""
+        Non-scalar kwargs collapse to a type token."""
         kwargs = {
             k: v
             for k, v in self.backend_kwargs.items()
+            # the reference's measurement knobs, which the port refuses: the
+            # reference's static gate, run over both packages, holds every
+            # cache-key sink to them
             if k not in ("pipeline_workers", "compile_cache")
         }
         # the common costmodel case keeps the reference's compact form
@@ -473,12 +474,11 @@ class TuningSession:
                 f"backend {spec.backend!r} has no default space; set "
                 "TuningSpec.space explicitly"
             )
+        # a closure over the spec, not the session: the spec is fixed once the
+        # session is built, and the session is then no reference cycle
         self._factory = measurement_factory or (
             lambda s: make_measurement(
-                self.spec.backend,
-                kernel=self.spec.kernel,
-                seed=s,
-                **self.spec.backend_kwargs,
+                spec.backend, kernel=spec.kernel, seed=s, **spec.backend_kwargs
             )
         )
         self._store_path = store_path if store_path is not None else spec.store_path
@@ -630,9 +630,7 @@ class TuningSession:
         resume: bool = False,
         unit_experiments: int | None = None,
         futures_pool=None,
-        pipeline_workers: int | None = None,
         scheduler: str = "steal",
-        compile_cache: str | None = None,
     ) -> MatrixResults:
         """Run the experiment matrix through the executor layer.
 
@@ -650,16 +648,11 @@ class TuningSession:
         picks how parallel executors hand units to workers: ``"steal"``
         (default) over-splits cells by predicted duration and lets workers
         pull units from a shared queue; ``"static"`` is the
-        one-partition-per-worker schedule.  ``pipeline_workers=N`` enables
-        the staged backend's compile-prefetch pipeline and
-        ``compile_cache=DIR`` points it at a persistent cross-process
-        compile cache (backends with ``Backend.pipeline``: ``cuda``; others
-        raise ``ValueError``).  Both change how fast measurements happen,
-        never what they are, and stay out of cache keys and journal
-        namespaces.  The call runs inside the backend's ``shared_inputs``
-        scope, where it has one (``cuda``): its measurements in this process
-        (the dataset's and the units') stage their inputs on a card once,
-        and the card holds nothing of them after the call.
+        one-partition-per-worker schedule.  The call runs inside the
+        backend's ``shared_inputs`` scope, where it has one (``cuda``): its
+        measurements in this process (the dataset's and the units') stage
+        their inputs on a card once, and the card holds nothing of them
+        after the call.
 
         With telemetry on, the session's own work before its units run and
         after they end is traced as two trace-only ``session`` stage events
@@ -676,9 +669,7 @@ class TuningSession:
                 resume=resume,
                 unit_experiments=unit_experiments,
                 futures_pool=futures_pool,
-                pipeline_workers=pipeline_workers,
                 scheduler=scheduler,
-                compile_cache=compile_cache,
             )
 
     def _run_matrix_impl(
@@ -690,40 +681,12 @@ class TuningSession:
         resume: bool,
         unit_experiments: int | None,
         futures_pool,
-        pipeline_workers: int | None,
         scheduler: str,
-        compile_cache: str | None,
     ) -> MatrixResults:
         t0 = monotonic()
         if scheduler not in ("steal", "static"):
             raise ValueError(
                 f"unknown scheduler {scheduler!r}; use 'steal' or 'static'"
-            )
-        if pipeline_workers is not None:
-            if not self._backend.pipeline:
-                raise ValueError(
-                    f"backend {self.spec.backend!r} has no compile pipeline; "
-                    "pipeline_workers applies to staged backends only "
-                    "(BACKENDS[...].pipeline)"
-                )
-            self.spec = self.spec.replace(
-                backend_kwargs={
-                    **self.spec.backend_kwargs,
-                    "pipeline_workers": int(pipeline_workers),
-                }
-            )
-        if compile_cache is not None:
-            if not self._backend.pipeline:
-                raise ValueError(
-                    f"backend {self.spec.backend!r} has no compile stage; "
-                    "compile_cache applies to staged backends only "
-                    "(BACKENDS[...].pipeline)"
-                )
-            self.spec = self.spec.replace(
-                backend_kwargs={
-                    **self.spec.backend_kwargs,
-                    "compile_cache": os.path.abspath(compile_cache),
-                }
             )
         cells = self.cells()
         name = executor
@@ -929,12 +892,6 @@ class TuningSession:
         d = dict(self._spec_dict_or_repr())
         for k in ("store", "store_path"):
             d.pop(k, None)
-        if isinstance(d.get("backend_kwargs"), dict):
-            # speed knobs change execution speed, never results
-            bk = dict(d["backend_kwargs"])
-            bk.pop("pipeline_workers", None)
-            bk.pop("compile_cache", None)
-            d["backend_kwargs"] = bk
         try:
             fp = stable_seed(json.dumps(d, sort_keys=True))
         except (TypeError, ValueError):
@@ -1202,7 +1159,7 @@ class TuningSession:
             extra_out["telemetry"] = self._last_telemetry
         if self._last_cell_walls:
             # per-cell search cost (sum of unit wall-clocks, parallel or
-            # not), with the staged pipeline's compile-vs-measure split
+            # not), with the staged measurement's compile-vs-measure split
             extra_out["cell_wall_s"] = [
                 {
                     "algo": algo,
@@ -1252,9 +1209,7 @@ def tune_matrix(
     resume: bool = False,
     unit_experiments: int | None = None,
     futures_pool=None,
-    pipeline_workers: int | None = None,
     scheduler: str = "steal",
-    compile_cache: str | None = None,
     out_dir: str | None = None,
     verbose: bool = False,
     extra: dict | None = None,
@@ -1298,9 +1253,7 @@ def tune_matrix(
             resume=resume,
             unit_experiments=unit_experiments,
             futures_pool=futures_pool,
-            pipeline_workers=pipeline_workers,
             scheduler=scheduler,
-            compile_cache=compile_cache,
         )
         if out_dir is not None:
             name = (spec.cache_key or spec.default_cache_key()).replace("/", "_")

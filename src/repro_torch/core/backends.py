@@ -45,10 +45,7 @@ class Backend:
     matrix record carry the exact optimum (the cost model's).
     ``serializable`` marks whether specs using this backend can round-trip
     through JSON and so be rebuilt in a parallel executor's workers.
-    ``pipeline`` marks whether ``make`` accepts ``pipeline_workers=`` and
-    ``compile_cache=`` (the staged compile-prefetch pipeline and the
-    persistent compile cache: ``cuda``); the session refuses the knobs on
-    backends without it.  ``shared_inputs``, where set, opens a scope in
+    ``shared_inputs``, where set, opens a scope in
     which the backend's measurements share their staged inputs (``cuda``:
     one device copy per workload and card); a matrix call runs inside one.
     """
@@ -58,7 +55,6 @@ class Backend:
     default_space: Callable[..., SearchSpace] | None = None
     true_optimum: Callable[..., tuple[dict, float]] | None = None
     serializable: bool = True
-    pipeline: bool = False
     shared_inputs: Callable[[], ContextManager] | None = None
 
 
@@ -127,8 +123,6 @@ def _make_cuda(
     repeats: int = 5,
     warmup: int = 1,
     device: str = "cuda",
-    pipeline_workers: int = 0,
-    compile_cache: str | None = None,
 ) -> BaseMeasurement:
     # lazy import: core stays importable without the kernel packages
     from ..cuda_bench import DEFAULT_X, DEFAULT_Y, CudaMeasurement, make_workload
@@ -139,8 +133,7 @@ def _make_cuda(
         y=y if y is not None else DEFAULT_Y,
         input_seed=input_seed,
     )
-    return CudaMeasurement(workload, repeats=repeats, warmup=warmup, device=device,
-                           pipeline_workers=pipeline_workers, compile_cache=compile_cache)
+    return CudaMeasurement(workload, repeats=repeats, warmup=warmup, device=device)
 
 
 def _cuda_shared_inputs() -> ContextManager:
@@ -230,7 +223,7 @@ register_backend(
     )
 )
 register_backend(
-    Backend(name="cuda", make=_make_cuda, default_space=_cuda_space, pipeline=True,
+    Backend(name="cuda", make=_make_cuda, default_space=_cuda_space,
             shared_inputs=_cuda_shared_inputs)
 )
 register_backend(Backend(name="timing", make=_make_timing, serializable=False))

@@ -10,19 +10,15 @@ tunes a kernel on the card.  A port of ``repro.pallas_bench``.
 Layout:
     workloads.py  deterministic problem materialization from spec kwargs
     validity.py   geometry pre-screen + structured InvalidMeasurement penalty
-    measure.py    CudaMeasurement: warm cache, warmup, N-repeat timing,
-                  the compile-prefetch pipeline
-    compile_cache.py  persistent cross-process cache of compile outcomes
+    measure.py    CudaMeasurement: warm cache, warmup, N-repeat timing
 """
 
 from ..core.space import Param, SearchSpace
-from .compile_cache import CompileCache
 from .measure import CudaMeasurement
 from .validity import InvalidMeasurement, fit_constraint, validate_config
 from .workloads import DEFAULT_X, DEFAULT_Y, CudaWorkload, make_workload
 
 __all__ = [
-    "CompileCache",
     "CudaMeasurement",
     "CudaWorkload",
     "DEFAULT_X",

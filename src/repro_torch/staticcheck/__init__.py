@@ -12,7 +12,7 @@ syntax:
 * :mod:`.det`   — DET rules: no non-injected wall clock, no unseeded global
   randomness, no unordered-set iteration in determinism-critical modules
   (``repro_torch/core/``, ``repro_torch/cuda_bench/``).
-* :mod:`.prov`  — PROV rules: speed knobs (``pipeline_workers`` & friends)
+* :mod:`.prov`  — PROV rules: speed knobs (``max_workers`` & friends)
   provably never reach cache keys, journal namespaces, spec fingerprints.
 * :mod:`.reg`   — REG rules: the port's SEARCHERS / BACKENDS / EXECUTORS /
   STORES / KERNEL_BENCHES / TUNABLE_KERNELS registries are complete and

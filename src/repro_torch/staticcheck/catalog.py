@@ -44,7 +44,7 @@ _ALL = (
     Rule(
         "PROV001",
         "PROV",
-        "a speed knob (pipeline_workers/max_workers/executor/futures_pool) "
+        "a speed knob (max_workers/executor/futures_pool/scheduler) "
         "is injected into a TuningSpec's backend_kwargs but not excluded by a "
         "cache-key / journal-namespace / fingerprint sink "
         "(repro_torch.core.api, repro_torch.analysis.report)",

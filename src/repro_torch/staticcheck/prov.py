@@ -1,9 +1,8 @@
 """PROV rules: speed knobs must never reach provenance namespaces.
 
 The executor layer's core promise is that *how fast* a run executes never
-changes *what* it computes: ``pipeline_workers``, ``max_workers``,
-``executor``, ``futures_pool``, ``scheduler``, ``compile_cache`` may change
-wall-clock only.  The promise is
+changes *what* it computes: ``max_workers``, ``executor``,
+``futures_pool``, ``scheduler`` may change wall-clock only.  The promise is
 load-bearing in three sink functions — ``default_cache_key`` (the shared
 measurement-store namespace), ``journal_namespace`` (resume validity), and
 ``_spec_fingerprint`` (the analysis layer's run identity).  If a knob leaks
@@ -22,8 +21,9 @@ journals orphan themselves whenever someone changes parallelism.
    mention it in an exclusion context: a comparison (``k != "knob"``,
    ``k not in (...)``) or a ``.pop("knob", ...)``.
 
-Deleting the one-line filter in ``TuningSpec.default_cache_key`` makes this
-rule fire — that regression is pinned by the fixture corpus.
+Threading a knob into ``backend_kwargs`` without a filter in
+``TuningSpec.default_cache_key`` makes this rule fire — that regression is
+pinned by the tests.
 """
 
 from __future__ import annotations
@@ -34,12 +34,10 @@ from dataclasses import dataclass, field
 from .findings import Finding
 
 SPEED_KNOBS = (
-    "pipeline_workers",
     "max_workers",
     "executor",
     "futures_pool",
     "scheduler",
-    "compile_cache",
     # fleet pacing (repro_torch.serving): how fast a queue drains, never what the
     # tuned values are — byte-identity of fleet vs serial runs depends on it
     "claim_timeout_s",
@@ -112,7 +110,7 @@ def collect_facts(path: str, tree: ast.AST) -> _FileFacts:
                     and isinstance(node.value, ast.Dict)
                 ):
                     bound_dicts.add(id(node.value))
-            # spec.backend_kwargs["pipeline_workers"] = N
+            # spec.backend_kwargs["scheduler"] = name
             for t in node.targets:
                 if (
                     isinstance(t, ast.Subscript)

@@ -10,9 +10,8 @@
   (but for their ``fresh`` time stamps);
 * the port's ``--executor process --max-workers 2`` and a ``--resume`` from
   a copy of the serial store equal the serial run;
-* ``--pipeline-workers`` and ``--compile-cache`` are refused off the
-  ``cuda`` backend and taken on it (the cells equal the run without them),
-  ``--device`` is refused off the ``cuda`` backend, and the ``cuda`` backend
+* ``--pipeline-workers`` and ``--compile-cache`` are refused on every
+  backend (the port's measurement has no such knob), ``--device`` is refused off the ``cuda`` backend, and the ``cuda`` backend
   raises on a host with no card;
 * a ``cuda`` combo with ``device="cpu"`` at 64x128 equals the reference's
   ``pallas`` combo, with both packages' clocks ticking one second a
@@ -33,7 +32,6 @@ import os
 import re
 import shutil
 import sys
-import threading
 
 import numpy as np
 import pytest
@@ -200,45 +198,23 @@ def test_process_executor_and_resume_equal_serial(smoke, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--pipeline-workers", "2"], ["--compile-cache", "cc"]])
-def test_compile_pipeline_knobs_are_refused(flag, tmp_path, real_combos):
-    """Refused off the staged ``cuda`` backend, as the reference refuses
-    them off ``pallas``; on ``cuda`` (``device="cpu"``) the knob is taken
-    and the combo's cells equal the run without it (clocks ticking)."""
-    with pytest.raises(ValueError, match=flag[0][2:].replace("-", "_")):
-        port_main([*SMOKE, "--out", str(tmp_path / "costmodel"), *flag])
-    ours_dir = real_combos[0]
-    knob = {flag[0][2:].replace("-", "_"):
-            int(flag[1]) if flag[1].isdigit() else str(tmp_path / flag[1])}
-    out = str(tmp_path / "cuda")
-    # one tick a reading in each thread: the pool's stage clocks never land
-    # between a timed repeat's two readings
-    local = threading.local()
-
-    def thread_ticks() -> float:
-        local.n = getattr(local, "n", -1) + 1
-        return float(local.n)
-
-    port_clock.set_timer(thread_ticks)
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            paper_matrix.run_combo(
-                "harris", "cuda", ExperimentDesign(sample_sizes=(5,), n_experiments=(2,),
-                                                   final_repeats=2),
-                out, algorithms=("rs", "ga"), verbose=False,
-                backend_kwargs={"x": 64, "y": 128, "repeats": 1, "warmup": 1,
-                                "device": "cpu"}, **knob)
-    finally:
-        port_clock.set_timer(None)
-    got = RunRecord.load(os.path.join(out, "harris_cuda.json"))
-    want = RunRecord.load(os.path.join(ours_dir, "harris_cuda.json"))
-    assert got.result["cells"] == want.result["cells"]
-    # the record names the knob (as the reference's does); nothing else moves
-    kwargs = dict(got.spec["backend_kwargs"])
-    assert kwargs.pop(next(iter(knob))) == next(iter(knob.values()))
-    assert kwargs == want.spec["backend_kwargs"]
-    strip = {"backend_kwargs", "store_path"}
-    assert {k: v for k, v in got.spec.items() if k not in strip} == \
-        {k: v for k, v in want.spec.items() if k not in strip}
+def test_compile_pipeline_knobs_are_refused(flag, tmp_path):
+    """The reference's two speed knobs of the measurement have no
+    counterpart: the port's driver refuses either flag on every backend,
+    and its ``run_combo`` takes neither keyword."""
+    knob = flag[0][2:].replace("-", "_")
+    for backend in ("costmodel", "cuda"):
+        argv = ["--backend", backend, "--design", "smoke", "--bench", "harris",
+                "--out", str(tmp_path / backend), *flag]
+        err = io.StringIO()
+        with pytest.raises(SystemExit) as exc, contextlib.redirect_stderr(err):
+            paper_matrix.main(argv)
+        assert exc.value.code == 2 and f"unrecognized arguments: {flag[0]}" in err.getvalue()
+    with pytest.raises(TypeError, match=knob):
+        paper_matrix.run_combo("harris", "cuda", ExperimentDesign(sample_sizes=(5,),
+                                                                  n_experiments=(2,)),
+                               str(tmp_path / "combo"), **{knob: flag[1]})
+    assert not os.listdir(tmp_path)
 
 
 def test_device_applies_to_the_cuda_backend_only(tmp_path):
@@ -369,15 +345,3 @@ def test_claims_equal_the_reference(smoke):
     assert {k: (v.status, v.detail) for k, v in ours.items()} == \
         {k: (v.status, v.detail) for k, v in ref.items()}
     assert {v.status for v in ours.values()} == {"insufficient-data"}
-
-
-def test_pipeline_overlap_row_says_it_waits(capsys):
-    """The reference's table: a synthetic first-call delay, workers 0
-    against 4, identical values and the wall ratio."""
-    run.table_pipeline_overlap(n_cfgs=4, compile_ms=5.0)
-    rows = [ln.split(",", 2) for ln in capsys.readouterr().out.strip().splitlines()]
-    assert [r[0] for r in rows] == ["pipeline_overlap/prefetch_off",
-                                    "pipeline_overlap/prefetch_on"]
-    assert all(float(r[1]) > 0 for r in rows)
-    assert rows[0][2] == "configs=4"
-    assert re.fullmatch(r"speedup=\d+\.\d\dx identical=1", rows[1][2])

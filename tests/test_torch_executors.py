@@ -29,6 +29,7 @@ from repro_torch import (
     build_units,
 )
 from repro_torch.core import MeasurementStore, executors
+from repro_torch.core.backends import BACKENDS, make_measurement
 from repro_torch.core.executors import ExecutionPlan, run_units, shard_store_path
 
 SPEC = TuningSpec(
@@ -332,25 +333,22 @@ def test_executor_registry_and_argument_errors(tmp_path):
         session.run_matrix(executor="process", futures_pool=ThreadPoolExecutor(max_workers=2))
     with pytest.raises(ValueError, match="max_workers"):
         session.run_matrix(max_workers=0)
-    # the reference's speed knobs: refused off the staged backend, as the
-    # reference refuses them; the cuda backend takes both
-    with pytest.raises(ValueError, match="pipeline_workers"):
-        TuningSession(SPEC).run_matrix(pipeline_workers=2)
-    with pytest.raises(ValueError, match="compile_cache"):
-        TuningSession(SPEC).run_matrix(compile_cache="cache")
+    # the reference's speed knobs of the measurement have no counterpart:
+    # no entry point of the port takes them, on any backend
     cuda = SPEC.replace(backend="cuda", algorithms=("rs",), dataset_size=None,
                         backend_kwargs={"device": "cpu", "x": 64, "y": 128, "repeats": 1},
                         design=ExperimentDesign(sample_sizes=(3,), n_experiments=(1,),
                                                 final_repeats=1))
-    plain = TuningSession(cuda).run_matrix()
-    for knobs in ({"pipeline_workers": 2},
-                  {"compile_cache": str(tmp_path / "cache")},
-                  {"pipeline_workers": 2, "compile_cache": str(tmp_path / "cache")}):
-        session = TuningSession(cuda)
-        res = session.run_matrix(**knobs)
-        assert set(res.cells) == set(plain.cells), knobs
-        assert all(np.isfinite(c.final_values).all() for c in res.cells.values()), knobs
-        assert session.cache_key == TuningSession(cuda).cache_key
+    for knobs in ({"pipeline_workers": 2}, {"compile_cache": str(tmp_path / "cache")}):
+        for spec in (SPEC, cuda):
+            with pytest.raises(TypeError, match=next(iter(knobs))):
+                TuningSession(spec).run_matrix(**knobs)
+            with pytest.raises(TypeError, match=next(iter(knobs))):
+                repro_torch.tune_matrix(spec, **knobs)
+        with pytest.raises(TypeError, match=next(iter(knobs))):
+            make_measurement("cuda", kernel="add", device="cpu", **knobs)
+    assert not hasattr(BACKENDS["cuda"], "pipeline")
+    assert not os.path.exists(tmp_path / "cache")
     with pytest.raises(ValueError, match="design"):
         TuningSession(SPEC.replace(design=None)).run_matrix()
 

@@ -1,18 +1,21 @@
 """The port's static gate (``repro_torch.staticcheck``) against the
 reference's (``repro.staticcheck``), on the CPU.
 
-* the fixture corpus ``tests/fixtures/staticcheck/``, read in place, gives
-  the same findings through both gates — path, line, column, rule,
-  severity and message — except that DET001 names the port's clock seam,
+* the fixture corpus ``tests/fixtures/staticcheck/``, with its PROV
+  fixtures' knob ``pipeline_workers`` (the reference's measurement's, which
+  the port does not have) spelled ``scheduler`` (a knob of both), gives the
+  same findings through both gates — path, line, column, rule, severity
+  and message — except that DET001 names the port's clock seam,
   ``repro_torch.core.clock.monotonic()``;
 * each rule family's bad fixture is caught and its suppressed twin is
   clean, in both gates;
 * the port's own tree is clean under its gate, registries included;
 * a copy of the port's tree seeded with one violation per family gives the
   same AST findings through both gates;
-* deleting a speed-knob exclusion from a copy of the port's ``core/api.py``
-  (``default_cache_key``'s filter, ``journal_namespace``'s ``pop``) makes
-  PROV001 fire on that sink;
+* a copy of the port's ``core/api.py`` that threads the ``scheduler`` knob
+  into ``backend_kwargs``, with no filter in ``default_cache_key`` or in a
+  ``journal_namespace`` that reads ``backend_kwargs``, makes PROV001 fire
+  on that sink;
 * REG001-003, SER001 and SER002 catch broken entries patched into the
   port's registries, and are clean on the real ones;
 * the spec pre-flight gives the reference's messages on the reference's
@@ -77,6 +80,22 @@ def fixture(*parts: str) -> str:
     return os.path.join(FIXTURES, *parts)
 
 
+#: the corpus's speed knob, which only the reference's measurement has, and
+#: the knob of both gates that stands in for it
+CORPUS_KNOB, PORT_KNOB = "pipeline_workers", "scheduler"
+
+
+def port_corpus(tmp_path) -> str:
+    """A copy of the fixture corpus with the PROV fixtures' knob spelled
+    :data:`PORT_KNOB`; lines and columns of every finding stay."""
+    root = tmp_path / "staticcheck"
+    shutil.copytree(FIXTURES, root, ignore=shutil.ignore_patterns("__pycache__"))
+    for name in ("prov_bad", "prov_good"):
+        for path in sorted((root / name).glob("*.py")):
+            path.write_text(path.read_text().replace(CORPUS_KNOB, PORT_KNOB))
+    return str(root)
+
+
 def key(f) -> tuple:
     """A finding of either gate as comparable fields, with the port's clock
     seam mapped onto the reference's (the one message that differs)."""
@@ -118,19 +137,22 @@ def test_select_expands_families():
 # ------------------------------------------------------------------- corpus
 
 
-def test_corpus_findings_equal_the_references():
-    ours, ref = both([FIXTURES])
+def test_corpus_findings_equal_the_references(tmp_path):
+    ours, ref = both([port_corpus(tmp_path)])
     assert [key(f) for f in ours] == [key(f) for f in ref]
     det001 = [f for f in ours if f.rule == "DET001"]
     assert len(det001) == 3 and all(PORT_SEAM in f.message for f in det001)
 
 
-def test_corpus_matches_expected_bad_with_the_ports_seam():
-    got = [format_finding(f).replace(FIXTURES + os.sep, "")
-           for f in check_paths([FIXTURES], registry=False)]
+def test_corpus_matches_expected_bad_with_the_ports_seam(tmp_path):
+    corpus = port_corpus(tmp_path)
+    got = [format_finding(f).replace(corpus + os.sep, "")
+           for f in check_paths([corpus], registry=False)]
     with open(fixture("expected_bad.txt"), encoding="utf-8") as fh:
         expected = [
-            line.replace(REF_SEAM, PORT_SEAM) if " DET001 " in line else line
+            line.replace(REF_SEAM, PORT_SEAM) if " DET001 " in line
+            else line.replace(f"'{CORPUS_KNOB}'", f"'{PORT_KNOB}'") if " PROV001 " in line
+            else line
             for line in fh.read().splitlines()
         ]
     assert got == expected
@@ -174,25 +196,31 @@ def test_det_scope_is_the_ports_core_and_cuda_bench(path, critical):
     assert is_det_critical(path) is critical
 
 
-def test_prov_violation_caught_and_clean_sink_passes():
-    bad = check_paths([fixture("prov_bad")], registry=False)
+def test_prov_violation_caught_and_clean_sink_passes(tmp_path):
+    corpus = port_corpus(tmp_path)
+    bad = check_paths([os.path.join(corpus, "prov_bad")], registry=False)
     assert {f.rule for f in bad} == {"PROV001"}
-    assert "pipeline_workers" in bad[0].message
+    assert PORT_KNOB in bad[0].message
     assert "injector.py" in bad[0].message     # names the injection site
-    assert check_paths([fixture("prov_good")], registry=False) == []
+    assert check_paths([os.path.join(corpus, "prov_good")], registry=False) == []
     assert check_paths([fixture("det_good.py")], registry=False) == []
+    # the reference's measurement knob is no knob of the port's gate
+    assert check_paths([fixture("prov_bad")], registry=False) == []
 
 
 def test_prov_suppression_honored(tmp_path):
-    shutil.copy(fixture("prov_bad", "injector.py"), tmp_path / "injector.py")
-    with open(fixture("prov_bad", "sink.py"), encoding="utf-8") as fh:
+    prov_bad = os.path.join(port_corpus(tmp_path), "prov_bad")
+    assert {f.rule for f in check_paths([prov_bad], registry=False)} == {"PROV001"}
+    path = os.path.join(prov_bad, "sink.py")
+    with open(path, encoding="utf-8") as fh:
         sink = fh.read()
     sink = sink.replace(
         "def default_cache_key(self) -> str:",
         "def default_cache_key(self) -> str:  # repro: allow[PROV001]",
     )
-    (tmp_path / "sink.py").write_text(sink)
-    assert check_paths([str(tmp_path)], registry=False) == []
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(sink)
+    assert check_paths([prov_bad], registry=False) == []
 
 
 def test_suppression_parsing_rules_and_families():
@@ -238,6 +266,10 @@ def seeded(spec_cls, items):
     return spec_cls(kernel="k", searcher_kwargs={"score_fn": lambda c: 0.0}), t0
 
 
+def static_schedule(spec):
+    return spec.replace(backend_kwargs={**spec.backend_kwargs, "scheduler": "static"})
+
+
 class Leaky:
     def default_cache_key(self) -> str:
         return f"{self.backend_kwargs}|{self.trace_dir}"
@@ -252,37 +284,59 @@ def test_seeded_copy_of_the_port_gives_the_references_findings(tmp_path):
     assert [key(f) for f in ours] == [key(f) for f in ref]
     assert {f.rule for f in ours} == {"DET001", "DET003", "LIB001", "SER003", "OBS001",
                                       "PROV001"}
-    assert all(f.path.endswith("_seeded.py") for f in ours)
-    # the knobs the port's session injects (core/api.py) are the live ones
-    prov = [f.message for f in ours if f.rule == "PROV001"]
-    assert len(prov) == 2 and all("core/api.py" in m for m in prov)
+    assert all(f.path.endswith("_seeded.py") for f in ours if f.rule != "PROV001")
+    # the port injects no knob of its own: the seeded one is the live one,
+    # and every sink that reads backend_kwargs must exclude it
+    prov = [f for f in ours if f.rule == "PROV001"]
+    assert all("'scheduler'" in f.message and "_seeded.py:" in f.message for f in prov)
+    sinks = sorted((os.path.relpath(f.path, tree).replace(os.sep, "/"),
+                    f.message.split(" but ")[1].split("(")[0]) for f in prov)
+    assert sinks == [("analysis/report.py", "_spec_fingerprint"),
+                     ("core/_seeded.py", "default_cache_key"),
+                     ("core/api.py", "default_cache_key")]
 
 
 # ------------------------------------------------------------ PROV regression
 
 
+#: the cache-key bug: a speed knob rebound into the session's spec
+INJECT_OLD = """        cells = self.cells()
+        name = executor
+"""
+INJECT_NEW = """        self.spec = self.spec.replace(
+            backend_kwargs={**self.spec.backend_kwargs, "scheduler": scheduler})
+        cells = self.cells()
+        name = executor
+"""
+#: a journal namespace that reads backend_kwargs and filters no knob
+JOURNAL_OLD = """        for k in ("store", "store_path"):
+            d.pop(k, None)
+"""
+JOURNAL_NEW = JOURNAL_OLD + """        d["backend_kwargs"] = dict(d.get("backend_kwargs") or {})
+"""
+
+
 @pytest.mark.parametrize(
-    "sink,old,new,knobs",
+    "sink,patches",
     [
-        ("default_cache_key",
-         'if k not in ("pipeline_workers", "compile_cache")',
-         'if k not in ("never_this_knob",)', ["compile_cache", "pipeline_workers"]),
-        ("journal_namespace",
-         '            bk.pop("pipeline_workers", None)\n', "", ["pipeline_workers"]),
+        ("default_cache_key", [(INJECT_OLD, INJECT_NEW)]),
+        ("journal_namespace", [(INJECT_OLD, INJECT_NEW), (JOURNAL_OLD, JOURNAL_NEW)]),
     ],
 )
-def test_reintroducing_the_cache_key_bug_fails_prov(tmp_path, sink, old, new, knobs):
+def test_reintroducing_the_cache_key_bug_fails_prov(tmp_path, sink, patches):
     with open(os.path.join(PORT_SRC, "core", "api.py"), encoding="utf-8") as fh:
         api = fh.read()
-    assert api.count(old) == 1, "exclusion moved? update this test"
     path = tmp_path / "api.py"
     path.write_text(api)
     assert check_paths([str(path)], registry=False) == []
-    path.write_text(api.replace(old, new))
+    for old, new in patches:
+        assert api.count(old) == 1, "patch site moved? update this test"
+        api = api.replace(old, new)
+    path.write_text(api)
     ours, ref = both([str(path)])
-    prov = [f for f in ours if f.rule == "PROV001"]
-    assert [f.message.split("'")[1] for f in prov] == knobs
-    assert all(f"{sink}()" in f.message for f in prov)
+    prov = [f for f in ours if f.rule == "PROV001" and f"{sink}()" in f.message]
+    assert [f.message.split("'")[1] for f in prov] == ["scheduler"]
+    assert {f.rule for f in ours} == {"PROV001"}
     assert [key(f) for f in ours] == [key(f) for f in ref]
 
 
