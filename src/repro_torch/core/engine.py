@@ -45,19 +45,23 @@ def drive(
     to the searcher (``inf_penalties_told``), and emits a ``propose``
     stage event around ``start``, each ``tell`` (the searcher's next
     proposal runs inside it) and ``finish``: the searcher's share of the
-    loop, with its ``algo`` and the searcher's own split (``fit_s`` /
-    ``acquire_s`` for ``bo_gp`` and ``rf``).  ``propose`` is trace-only,
-    charged to no stage clock.  Observability only: the loop's results are
-    identical with or without it, and without it the loop reads no clock.
+    loop, with its ``algo``, the searcher's own split (``fit_s`` /
+    ``acquire_s`` for ``bo_gp``, ``fit_s`` / ``pool_s`` / ``acquire_s`` for
+    ``rf``) and the rows its space screened since the last event
+    (``screened_rows``, of those ``screened_batched`` in the constraint's
+    batch form).  ``propose`` is trace-only, charged to no stage clock.
+    Observability only: the loop's results are identical with or without
+    it, and without it the loop reads no clock and no count.
     """
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}")
     tel = telemetry if telemetry is not None else NULL_TELEMETRY
     traced = tel.enabled
     t = monotonic() if traced else 0.0
+    seen = list(searcher.space.screened()) if traced else None
     searcher.start(budget)
     if traced:
-        _proposed(tel, searcher, t)
+        _proposed(tel, searcher, t, seen)
     rnd = 0
     while True:
         configs = searcher.ask()
@@ -74,7 +78,7 @@ def drive(
                 t = monotonic()
             searcher.tell(configs, values)
             if traced:
-                _proposed(tel, searcher, t)
+                _proposed(tel, searcher, t, seen)
         if traced:
             bad = int(len(values) - np.count_nonzero(np.isfinite(values)))
             if bad:
@@ -84,14 +88,20 @@ def drive(
         t = monotonic()
     result = searcher.finish()
     if traced:
-        _proposed(tel, searcher, t)
+        _proposed(tel, searcher, t, seen)
     return result
 
 
-def _proposed(tel, searcher: Searcher, t0: float) -> None:
-    """The ``propose`` stage event of one searcher step begun at ``t0``."""
-    tel.stage("propose", monotonic() - t0, algo=searcher.name,
+def _proposed(tel, searcher: Searcher, t0: float, seen: list[int]) -> None:
+    """The ``propose`` stage event of one searcher step begun at ``t0``;
+    ``seen`` holds the space's screen counts at the last event and is
+    brought up to date."""
+    dur = monotonic() - t0
+    rows, batched = searcher.space.screened()
+    tel.stage("propose", dur, algo=searcher.name,
+              screened_rows=rows - seen[0], screened_batched=batched - seen[1],
               **searcher.take_split())
+    seen[:] = rows, batched
 
 
 # ---------------------------------------------------------------- disk cache

@@ -97,7 +97,8 @@ class Searcher(ABC):
     #: methods could not use constraint specification).
     uses_constraints: bool = True
     #: the parts of its proposal steps a searcher times on itself (its
-    #: surrogate's ``fit_s`` and ``acquire_s``), reported by
+    #: surrogate's ``fit_s`` and ``acquire_s``; ``rf`` also its pool's draw,
+    #: ``pool_s``), reported by
     #: :meth:`take_split`; trace attributes only, never a value, key or seed
     SPLIT: tuple[str, ...] = ()
 

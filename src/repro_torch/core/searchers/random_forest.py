@@ -29,7 +29,7 @@ from .base import ProposalGen, Searcher, TuningResult, register
 class RandomForestSearcher(Searcher):
     name = "rf"
     uses_constraints = True
-    SPLIT = ("fit_s", "acquire_s")
+    SPLIT = ("fit_s", "pool_s", "acquire_s")
 
     def __init__(
         self,
@@ -50,7 +50,8 @@ class RandomForestSearcher(Searcher):
         train_idx = self.space.sample_indices(self.rng, n_train)
         train_vals = yield self.space.decode_batch(train_idx)
 
-        # fit_s: the forest's fit; acquire_s: the pool's draw, predict, sort
+        # fit_s: the forest's fit; pool_s: the pool's draw and screen;
+        # acquire_s: the predictions over the pool, their sort, the decode
         t = monotonic()
         forest = BatchedForest(
             self.space.cardinalities,
@@ -61,6 +62,7 @@ class RandomForestSearcher(Searcher):
         t = self._lap("fit_s", t)
 
         pool = self.space.sample_indices(self.rng, self.pool_size)
+        t = self._lap("pool_s", t)
         preds = forest.predict(pool)[0]
         best = np.argsort(preds, kind="stable")[: top_k]
         pred_cfgs = self.space.decode_batch(pool[best])

@@ -12,11 +12,19 @@ constraints.
 Configs are plain dicts ``{param_name: value}``.  Internally every searcher
 works on an *index vector* (one integer index per parameter) so crossover,
 mutation, Parzen estimators and tree splits are uniform across param types.
+
+A constraint may carry a ``batch`` attribute: a function of the value
+columns of many configs (``{name: int64 array}``) that returns the
+predicate's verdict for each as a bool array.  :meth:`SearchSpace.valid_mask`
+screens with it, in one numpy pass, when every parameter's values are
+integers; otherwise it calls the predicate once a config.  The verdicts are
+the same either way, so the draws, proposals and random streams are too.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import Callable, Iterator, Sequence
 
@@ -73,6 +81,18 @@ class SearchSpace:
         self.params: tuple[Param, ...] = tuple(params)
         self.constraint = constraint
         self._cards = np.array([p.cardinality for p in self.params], dtype=np.int64)
+        #: each parameter's values as an int64 array, or None where a value
+        #: is not an integer or not small (the batch screen then does not
+        #: apply)
+        self._int_values = (
+            tuple(np.array(p.values, dtype=np.int64) for p in self.params)
+            if all(_is_int(v) for p in self.params for v in p.values) else None
+        )
+        #: rows screened by :meth:`valid_mask`, and of those the rows screened
+        #: through the constraint's ``batch`` form; trace attributes only
+        self.screened_rows = 0
+        self.screened_batched = 0
+        self._count_lock = threading.Lock()
 
     # -- basic properties ---------------------------------------------------
     @property
@@ -141,7 +161,30 @@ class SearchSpace:
     def valid_mask(self, idxs: np.ndarray) -> np.ndarray:
         if self.constraint is None:
             return np.ones(len(idxs), dtype=bool)
+        batch = getattr(self.constraint, "batch", None)
+        batched = batch is not None and self._int_values is not None
+        with self._count_lock:
+            self.screened_rows += len(idxs)
+            self.screened_batched += len(idxs) if batched else 0
+        if batched:
+            columns = {p.name: v[idxs[:, j]] for j, (p, v)
+                       in enumerate(zip(self.params, self._int_values, strict=True))}
+            return np.asarray(batch(columns), dtype=bool)
         return np.array([self.is_valid(self.decode(r)) for r in idxs], dtype=bool)
+
+    def screened(self) -> tuple[int, int]:
+        """(:attr:`screened_rows`, :attr:`screened_batched`), read together."""
+        with self._count_lock:
+            return self.screened_rows, self.screened_batched
+
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        del state["_count_lock"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._count_lock = threading.Lock()
 
     # -- sampling -----------------------------------------------------------
     def sample_indices(self, rng: np.random.Generator, n: int) -> np.ndarray:
@@ -214,13 +257,29 @@ class SearchSpace:
         return f"SearchSpace({ps}, |S|={self.cardinality}, constrained={constrained})"
 
 
+#: a batch screen takes integer values within this bound, so the products
+#: of a few values that a constraint forms cannot wrap in int64 as Python's
+#: integers would not
+_BATCH_VALUE_LIMIT = 2**20
+
+
+def _is_int(v) -> bool:
+    return (isinstance(v, (int, np.integer)) and not isinstance(v, bool)
+            and abs(int(v)) < _BATCH_VALUE_LIMIT)
+
+
 def _paper_wg256(cfg: Config) -> bool:
     """The paper's workgroup constraint: prod(w) <= 256 threads."""
     return cfg["w_x"] * cfg["w_y"] * cfg["w_z"] <= 256
 
 
+def _paper_wg256_batch(columns: dict[str, np.ndarray]) -> np.ndarray:
+    return columns["w_x"] * columns["w_y"] * columns["w_z"] <= 256
+
+
 #: stable id used by TuningSpec serialization (see repro_torch.core.api)
 _paper_wg256.constraint_id = "paper_wg256"
+_paper_wg256.batch = _paper_wg256_batch
 
 
 def paper_space(constrained: bool = True) -> SearchSpace:

@@ -17,13 +17,19 @@ TPU's).
 * :func:`fit_constraint` packages the pre-screen as a *named* SearchSpace
   constraint, stable id ``cuda_fit:<kernel>:<x>:<y>:<smem>:<grid>`` (the
   limits it screens against are part of the name), which
-  :func:`repro_torch.core.api._resolve_constraint` rebuilds by name.
+  :func:`repro_torch.core.api._resolve_constraint` rebuilds by name.  Its
+  ``batch`` attribute (:func:`fit_mask`) gives the same verdicts for a
+  whole batch of configs in one numpy pass, which
+  :meth:`repro_torch.core.space.SearchSpace.valid_mask` uses.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from math import ceil
+
+import numpy as np
 
 from ..kernels.common import (
     Config,
@@ -97,6 +103,37 @@ def validate_geometry(
     return None
 
 
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def fit_mask(workload: CudaWorkload, columns: dict[str, np.ndarray]) -> np.ndarray:
+    """:func:`validate_geometry`'s verdicts on a batch of configs: True where
+    the reason would be None.  ``columns`` maps each parameter's name to an
+    integer array of its value in every config; a parameter it lacks counts
+    as 1, as in :func:`geometry_from_config`.  The rules are the ones above,
+    in integer arithmetic: :func:`launch_plan`'s grid is ``w * ceil(ceil(extent
+    / w) / block)`` on each axis (:func:`split_grid`).  A zero divisor in a
+    config that reaches the grid rule raises, as the single-config form does.
+    """
+    n = len(next(iter(columns.values())))
+    one = np.ones(n, dtype=np.int64)
+    t_x, t_y, t_z, w_x, w_y = (np.asarray(columns.get(k, one), dtype=np.int64)
+                               for k in ("t_x", "t_y", "t_z", "w_x", "w_y"))
+    x, y = workload.x, workload.y
+    bm, bn = 8 * t_x, 128 * t_y
+    rows = bm * t_z
+    ok = (bm % SUBLANES == 0) & (bn % LANES == 0)
+    ok &= (rows <= _ceil_div(x, SUBLANES) * SUBLANES) & (bn <= _ceil_div(y, LANES) * LANES)
+    if np.any(ok & ((rows == 0) | (bn == 0) | (w_x == 0) | (w_y == 0))):
+        raise ZeroDivisionError("a config's block or split is 0")
+    with np.errstate(divide="ignore"):  # the rows ruled out above
+        grid_r = w_x * _ceil_div(_ceil_div(x, w_x), rows)
+        grid_c = w_y * _ceil_div(_ceil_div(y, w_y), bn)
+    ok &= (grid_r <= MAX_GRID_Y) & (grid_c <= MAX_GRID_X)
+    return ok & (workload.bench.smem_bytes <= SMEM_LIMIT)
+
+
 def validate_config(workload: CudaWorkload, cfg: Config) -> str | None:
     """Pre-screen one config against a workload; reason string or None."""
     return validate_geometry(
@@ -114,4 +151,5 @@ def fit_constraint(workload: CudaWorkload):
         f"cuda_fit:{workload.name}:{workload.x}:{workload.y}"
         f":{SMEM_LIMIT}:{MAX_GRID_Y}"
     )
+    fn.batch = partial(fit_mask, workload)
     return fn

@@ -73,18 +73,25 @@ PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 
 #: the port's host stages, trace-only (no ``stage_s`` counterpart):
 #: ``propose`` — the searcher's ``start``, each ``tell`` (its next proposal)
-#: and ``finish`` in the engine's ``drive``, with ``algo`` (and ``fit_s`` /
-#: ``acquire_s`` where the searcher has a surrogate); ``session`` —
+#: and ``finish`` in the engine's ``drive``, with ``algo``, ``fit_s`` /
+#: ``acquire_s`` where the searcher has a surrogate (``rf`` adds ``pool_s``,
+#: its candidate pool's draw and screen, which ``acquire_s`` then leaves
+#: out), and ``screened_rows`` / ``screened_batched``: the rows the
+#: searcher's space screened against its constraint since the last event,
+#: and of those the rows screened in the constraint's batch form
+#: (``SearchSpace.valid_mask``; their share is the batch screen's
+#: engagement); ``session`` —
 #: ``TuningSession.run``'s own work before the search loop
 #: (``part="setup"``) and after the final re-measurement (``part="record"``),
 #: and ``run_matrix``'s before its units run (``part="setup"``: the unit
 #: plan, the journal) and after (``part="record"``: the merge, the store,
 #: the winners index, the record), with ``executor``.
-#: The searchers take their ``fit_s`` / ``acquire_s`` clock reads with the
-#: sink off too: a searcher is built without a sink and its proposal runs
-#: inside ``tell``, so gating them would thread the sink through the
-#: ``Searcher`` protocol the reference shares; two ``perf_counter`` reads
-#: (~0.1 µs) against a step of 0.3–10 ms is below any metric's noise
+#: The searchers take their split's clock reads, and the space counts its
+#: screened rows, with the sink off too: a searcher is built without a sink
+#: and its proposal runs inside ``tell``, so gating them would thread the
+#: sink through the ``Searcher`` protocol the reference shares; three
+#: ``perf_counter`` reads and a lock a screen (~0.2 µs) against a step of
+#: 0.3–10 ms is below any metric's noise
 HOST_STAGES = ("propose", "session")
 
 #: the port's matrix stages, each charged to the unit that ran it

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.core.space import paper_space
+from repro_torch.core.space import _paper_wg256
 from repro.pallas_bench import InvalidMeasurement as RefInvalid
 from repro.pallas_bench import fit_constraint as ref_fit_constraint
 from repro.pallas_bench import make_workload as ref_make_workload
@@ -82,6 +83,72 @@ def test_cuda_fit_accepts_what_pallas_fit_accepts_at_64x128(kernel):
     verdicts = [(ours(c), ref(c)) for c in configs]
     assert all(a == b for a, b in verdicts)
     assert 0 < sum(a for a, _ in verdicts) < len(verdicts)
+
+
+#: each rule's edge, as value columns: the block's rows (``8·t_x·t_z``) at
+#: the padded height and one step over, its columns (``128·t_y``) at the
+#: padded width and one over, and 65,535 / 65,536 tile rows of grid at an
+#: image 8·65535 high (``w_x`` 1, 3 fit; 2, 8 do not; 14 does not because
+#: each region's rows are rounded up, to 37,449)
+def _edge_rows(x: int, y: int) -> list[dict]:
+    x_pad, y_pad = -(-x // 8) * 8, -(-y // 128) * 128
+    one = dict(t_x=1, t_y=1, t_z=1, w_x=1, w_y=1, w_z=1)
+    rows = [{**one, "t_x": x_pad // 8}, {**one, "t_x": x_pad // 8 + 1},
+            {**one, "t_x": 1, "t_z": x_pad // 8}, {**one, "t_z": x_pad // 8 + 1},
+            {**one, "t_y": y_pad // 128}, {**one, "t_y": y_pad // 128 + 1},
+            {**one, "w_x": 7, "w_y": 5}]
+    rows += [{**one, "w_x": w} for w in (1, 2, 3, 8, 14)]
+    return rows
+
+
+@pytest.mark.parametrize("kernel", ["add", "harris", "mandelbrot"])
+@pytest.mark.parametrize("shape", [(8192, 8192), (64, 128), (64, 256), (1000, 3000),
+                                   (8 * 65535, 128)])
+def test_batch_screen_is_the_predicate(kernel, shape):
+    """``fit_constraint``'s batch form gives the scalar predicate's verdict
+    on 20,000 random configs and on each rule's edge; a block or split of 0
+    that reaches the grid rule raises in both; a parameter the columns lack
+    counts as 1 in both; an over-limit kernel fits nowhere in both."""
+    fn = fit_constraint(make_workload(kernel, *shape))
+    space = paper_space(constrained=False)
+    idx = space.sample_indices(np.random.default_rng(11), 20000)
+    cfgs = space.decode_batch(idx) + _edge_rows(*shape)
+    columns = {k: np.array([c[k] for c in cfgs], dtype=np.int64) for k in cfgs[0]}
+    verdicts = fn.batch(columns)
+    assert verdicts.dtype == bool
+    assert verdicts.tolist() == [fn(c) for c in cfgs]
+    if shape == (8 * 65535, 128):
+        assert verdicts[-5:].tolist() == [True, False, True, False, False]
+
+    partial = {k: v[:500] for k, v in columns.items() if k != "t_z"}
+    assert fn.batch(partial).tolist() == [
+        fn({k: int(v[i]) for k, v in partial.items()}) for i in range(500)]
+
+    zero = {k: v[-5:-4].copy() for k, v in columns.items()}
+    zero["w_y"][:] = 0
+    with pytest.raises(ZeroDivisionError):
+        fn.batch(zero)
+    with pytest.raises(ZeroDivisionError):
+        fn({k: int(v[0]) for k, v in zero.items()})
+
+    heavy = dataclasses.replace(
+        make_workload(kernel, *shape),
+        bench=dataclasses.replace(KERNEL_BENCHES[kernel], smem_bytes=SMEM_LIMIT + 1))
+    assert not fit_constraint(heavy).batch(columns).any()
+    assert not any(fit_constraint(heavy)(c) for c in cfgs[:200])
+
+
+def test_paper_constraint_batch_is_the_predicate():
+    space = paper_space(constrained=False)
+    cfgs = space.decode_batch(space.sample_indices(np.random.default_rng(12), 20000))
+    cfgs += [dict(w_x=8, w_y=8, w_z=4), dict(w_x=8, w_y=8, w_z=5),
+             dict(w_x=256, w_y=1, w_z=1), dict(w_x=257, w_y=1, w_z=1)]
+    columns = {k: np.array([c[k] for c in cfgs], dtype=np.int64)
+               for k in ("w_x", "w_y", "w_z")}
+    verdicts = _paper_wg256.batch(columns)
+    assert verdicts.tolist() == [_paper_wg256(c) for c in cfgs]
+    assert verdicts[-4:].tolist() == [True, False, True, False]
+    assert 0 < verdicts.sum() < len(cfgs)
 
 
 def test_validity_rules_in_reference_order():

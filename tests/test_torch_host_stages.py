@@ -12,9 +12,13 @@ trace-only.  Held here, on the ``cuda`` backend's plain versions
   the draw's and copy's seconds;
 * every ``propose`` and ``session`` interval is disjoint from every
   measurement stage's and from each other, and ``bo_gp``'s and ``rf``'s
-  propose events carry their surrogate's ``fit_s`` and ``acquire_s``;
+  propose events carry their surrogate's ``fit_s`` and ``acquire_s``
+  (``rf`` also its pool's ``pool_s``); every propose event counts the rows
+  its space screened (``screened_rows``), all of them in the constraint's
+  batch form on the cuda space and none under a batchless lambda;
 * without a sink, ``drive`` reads the clock no more than the bare ask/tell
-  loop does; results and stores are identical with the sink on and off;
+  loop does, and reads no screen count; results and stores are identical
+  with the sink on and off;
 * the sink stamps events on ``time.perf_counter``, the clock the
   benchmark's profiler reader maps onto the device's;
 * the process's input cache: a miss, a hit and a draw after eviction give
@@ -48,7 +52,7 @@ from repro_torch.core import clock as port_clock
 from repro_torch.core.engine import drive
 from repro_torch.core.measurement import CallableMeasurement
 from repro_torch.core.searchers import make_searcher
-from repro_torch.core.space import paper_space
+from repro_torch.core.space import SearchSpace, paper_space
 from repro_torch.cuda_bench.measure import CudaMeasurement
 from repro_torch.cuda_bench import workloads
 from repro_torch.cuda_bench.workloads import (
@@ -636,15 +640,33 @@ def test_host_stages_are_disjoint_from_the_measurement(tmp_path, ticking, algo):
     assert interval(sessions[0])[1] <= min(interval(e)[0] for e in events if e is not sessions[0])
     assert interval(sessions[1])[0] >= max(interval(e)[1] for e in events
                                            if e is not sessions[1])
-    split = {"fit_s", "acquire_s"}
+    split = {"bo_gp": {"fit_s", "acquire_s"},
+             "rf": {"fit_s", "pool_s", "acquire_s"}}.get(algo, set())
     for e in proposes:
-        if algo in ("bo_gp", "rf"):
-            assert split <= set(e) and e["fit_s"] + e["acquire_s"] <= e["dur"]
-        else:
-            assert not split & set(e)
-    if algo in ("bo_gp", "rf"):
-        assert sum(e["fit_s"] for e in proposes) > 0
-        assert sum(e["acquire_s"] for e in proposes) > 0
+        assert split == set(e) & {"fit_s", "pool_s", "acquire_s"}
+        assert sum(e[k] for k in split) <= e["dur"]
+    for k in split:
+        assert sum(e[k] for e in proposes) > 0
+    # the cuda space's screen: every row in its batch form; bo_gp searches
+    # the unconstrained space and screens none
+    screened = sum(e["screened_rows"] for e in proposes)
+    assert sum(e["screened_batched"] for e in proposes) == screened
+    assert (screened > 0) == (algo != "bo_gp")
+
+
+def test_propose_events_count_a_batchless_screen(tmp_path):
+    """Under a constraint with no batch form the rows are counted as
+    screened and none as batched; the counts are the space's, event by
+    event."""
+    space = SearchSpace(paper_space().params, constraint=lambda c: c["t_z"] <= 12)
+    tel = Telemetry(str(tmp_path / "l.jsonl"))
+    drive(make_searcher("rf", space, seed=2, pool_size=512), CallableMeasurement(objective),
+          BUDGETS["rf"], telemetry=tel)
+    tel.close()
+    proposes = stage_events(tmp_path / "l.jsonl", {"propose"})
+    assert sum(e["screened_rows"] for e in proposes) == space.screened_rows > 512
+    assert all(e["screened_batched"] == 0 for e in proposes)
+    assert sum(e["pool_s"] for e in proposes) > 0
 
 
 def test_host_stages_are_not_charged_to_the_stage_clock(tmp_path, ticking):
@@ -694,7 +716,9 @@ def test_drive_reads_no_clock_without_a_sink(tmp_path, ticking, algo):
         return ticking.n - n0, result
 
     bare = bare_loop()
-    off, r_off = driven(NULL_TELEMETRY)
+    with pytest.MonkeyPatch.context() as mp:   # no count read with the sink off
+        mp.setattr(SearchSpace, "screened", lambda self: pytest.fail("read"))
+        off, r_off = driven(NULL_TELEMETRY)
     assert off == bare
     assert (bare == 0) == (algo == "ga")
     ticks = itertools.count()

@@ -11,7 +11,12 @@
   posterior and expected improvement match the reference's;
 * the new space helpers and ``TuningResult.trajectory`` on seeded inputs;
 * the reference's behavioural checks, on the port: budgets, constraints, and
-  the ``rf`` winner taken from its predictions.
+  the ``rf`` winner taken from its predictions;
+* the constraint's batch screen (``SearchSpace.valid_mask``): ``rf``, ``rs``,
+  ``ga``, ``pso`` and ``grid`` propose the same configs with it and with
+  the row-by-row loop, rejection sampling leaves the same random stream,
+  and constraints without a batch form (or spaces with a categorical
+  parameter) go through the loop.
 """
 
 import itertools
@@ -323,6 +328,83 @@ def test_rf_result_comes_from_predictions(dispatch):
     assert r.final_value == _objective(r.best_config)
     assert calls[-3:] == [r.best_config] * 3
     assert session.last_record.result["best_config"] == r.best_config
+
+
+# ------------------------------------------ (f) the constraint's batch screen
+
+
+@pytest.mark.parametrize("algo,budget,kwargs", [
+    ("rf", 20, {"pool_size": 256}), ("rs", 20, {}), ("ga", 24, {}),
+    ("pso", 24, {}), ("grid", 20, {})])
+def test_batch_screen_proposes_what_the_loop_proposes(monkeypatch, algo, budget, kwargs):
+    """On the cuda space at 64x128 (~0.6 % of the configs fit, so rejection
+    sampling screens many rows), each constrained searcher proposes the same
+    configs with the constraint's batch form and without it (the loop)."""
+    from repro_torch.cuda_bench import default_space
+
+    space = default_space("harris", x=64, y=128)
+
+    def history() -> list:
+        m = CallableMeasurement(_objective)
+        return make_searcher(algo, space, seed=4, **kwargs).run(m, budget).history_configs
+
+    batched = history()
+    rows, n_batched = space.screened()
+    assert rows == n_batched > 0
+    monkeypatch.delattr(space.constraint, "batch")
+    assert history() == batched
+    assert space.screened()[1] == n_batched and space.screened()[0] > rows
+
+
+def test_batch_screen_keeps_the_random_stream():
+    """``sample_indices`` draws and keeps the same rows both ways, and
+    leaves the generator in the same state."""
+    from repro_torch.cuda_bench import default_space
+
+    space = default_space("add", x=64, y=256)
+    loop = SearchSpace(space.params, constraint=lambda cfg: space.constraint(cfg))
+    rng_b, rng_l = np.random.default_rng(21), np.random.default_rng(21)
+    for n in (1, 37, 400):
+        assert np.array_equal(space.sample_indices(rng_b, n),
+                              loop.sample_indices(rng_l, n))
+        assert rng_b.bit_generator.state == rng_l.bit_generator.state
+    assert space.screened()[0] == space.screened()[1] == loop.screened()[0] > 0
+    assert loop.screened()[1] == 0
+
+
+def _loop_verdicts(space, idx) -> list:
+    return [bool(space.constraint(space.decode(r))) for r in idx]
+
+
+def test_constraints_without_a_batch_form_screen_row_by_row(monkeypatch):
+    """A registered lambda, a ``vmem:`` cost-model constraint and a space
+    with a categorical parameter go through the loop (nothing counted as
+    batched), with the predicate's verdicts."""
+    import pickle
+
+    from repro_torch.core import api
+    from repro_torch.core.space import _paper_wg256
+    from repro_torch.costmodel import CHIPS, WORKLOADS, executable_space
+
+    params = paper_space().params
+    monkeypatch.setattr(api, "CONSTRAINTS", dict(api.CONSTRAINTS))
+    lam = api.register_constraint("test_batchless_tz", lambda c: c["t_z"] <= c["w_x"] + 3)
+    cat = SearchSpace([*params, Param.choice("layout", ("rows", "cols"))],
+                      constraint=_paper_wg256)
+    spaces = [SearchSpace(params, constraint=lam),
+              executable_space(WORKLOADS["harris"], CHIPS["v5e"]), cat]
+    idx = paper_space(False).sample_indices(np.random.default_rng(3), 3000)
+    for space in spaces:
+        rows = idx if space is not cat else np.concatenate(
+            [idx, np.random.default_rng(4).integers(0, 2, (len(idx), 1))], axis=1)
+        mask = space.valid_mask(rows)
+        assert mask.tolist() == _loop_verdicts(space, rows)
+        assert 0 < mask.sum() < len(rows)
+        assert space.screened() == (len(rows), 0)
+    # the paper's space screens in one pass, and survives a pickle round trip
+    paper = pickle.loads(pickle.dumps(paper_space()))
+    assert paper.valid_mask(idx).tolist() == _loop_verdicts(paper, idx)
+    assert paper.screened() == (len(idx), len(idx))
 
 
 @pytest.mark.parametrize("kernel", ("add", "harris", "mandelbrot"))
