@@ -16,7 +16,8 @@ Resolution order for ``(kernel, x, y, device)``:
 
 Every outcome bumps a serving counter (``serve.hits`` / ``serve.stale`` /
 ``serve.nearest`` / ``serve.misses`` / ``serve.enqueued``) and the
-``serve.queue_depth`` gauge on the attached telemetry — observability only.
+``serve.queue_depth`` gauge on the attached telemetry, and with the sink on
+the query is one trace-only ``serve`` stage — observability only.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass
 
 from ..core.api import TuningSpec
+from ..core.clock import monotonic
 from ..core.stores import make_store
 from ..telemetry.null import NULL_TELEMETRY
 from .queue import JobQueue
@@ -101,10 +103,21 @@ def best_config(store, kernel: str, x: int, y: int, device: str, *,
     ``max_age_s`` turns exact hits older than that into ``"stale"``.
     ``queue`` (a :class:`JobQueue`) arms enqueue-on-miss; ``enqueue_spec``
     overrides the default smoke-design job.  ``now`` pins the clock for
-    age math (tests).
+    age math (tests).  With telemetry on, the query is one trace-only
+    ``serve`` stage (``part="query"``, with the answer's ``status``).
     """
     tel = telemetry if telemetry is not None else NULL_TELEMETRY
-    x, y = int(x), int(y)
+    t0 = monotonic() if tel.enabled else None
+    res = _resolve(store, kernel, int(x), int(y), device, max_age_s, queue,
+                   enqueue_spec, tel, now)
+    if t0 is not None:
+        tel.stage("serve", monotonic() - t0, part="query", status=res.status)
+    return res
+
+
+def _resolve(store, kernel: str, x: int, y: int, device: str, max_age_s, queue,
+             enqueue_spec, tel, now) -> ServeResult:
+    """:func:`best_config`'s resolution, with its sink in hand."""
     rec = lookup_winner(store, kernel, x, y, device)
     if rec is not None:
         t = now if now is not None else now_stamp()

@@ -11,6 +11,14 @@ markers go through :class:`repro_torch.serving.queue.JobQueue`.  A
 where there is none — a worker never runs the plain versions in its
 place); only a job whose spec says ``device="cpu"`` runs them.
 
+With telemetry on, a worker's own work around the units it runs is traced
+as trace-only ``fleet`` stages (``repro_torch.telemetry.events.HOST_STAGES``):
+its sessions for a job built and seeded, its claims, its journal lookups and
+its done markers; its shard session's record of each unit it ran (the
+journal's put, the store's save) is a ``session`` stage, as
+``TuningSession.run``'s record of its run is; :func:`collect_jobs` is one
+``serve`` stage.
+
 Crash semantics are the executor layer's kill-and-resume guarantee lifted
 across hosts: a SIGKILLed worker leaves (a) a stale claim a peer steals
 after ``claim_timeout_s`` and (b) a shard store whose journal holds
@@ -86,6 +94,18 @@ class FleetWorker:
         self._completed: set[str] = set()
 
     # -- internals -------------------------------------------------------------
+    def _clock(self) -> float | None:
+        """A worker stage's start, or ``None`` with the sink off (no read)."""
+        return monotonic() if self.telemetry.enabled else None
+
+    def _stage(self, part: str, t0: float | None, jid: str | None = None,
+               stage: str = "fleet") -> None:
+        """One trace-only ``fleet`` (or ``session``) stage from ``t0`` to
+        now; nothing where ``t0`` is ``None`` (the sink is off)."""
+        if t0 is not None:
+            self.telemetry.stage(stage, monotonic() - t0, part=part, job=jid,
+                                 ident=self.ident)
+
     def _open_queue(self) -> JobQueue:
         return JobQueue.open(
             self.store_kind, self.store_path, self.qdir,
@@ -98,6 +118,7 @@ class FleetWorker:
         state = self._jobs.get(jid)
         if state is not None:
             return state
+        t0 = self._clock()
         spec = TuningSpec.from_dict(job["spec"])
         parent = TuningSession(spec)     # read-only: units + shard namespace
         units = job_units(parent, job)
@@ -117,6 +138,7 @@ class FleetWorker:
             "journal": wsession.unit_journal(),
         }
         self._jobs[jid] = state
+        self._stage("seed", t0, jid)
         return state
 
     def _work_job(self, queue: JobQueue, job: dict) -> tuple[bool, bool]:
@@ -126,9 +148,10 @@ class FleetWorker:
         state = self._job_state(job)
         ran = False
         for unit in state["units"]:
-            if queue.unit_done(jid, unit.key) is not None:
-                continue
-            claim = queue.claim_unit(jid, unit.key, self.ident)
+            t0 = self._clock()
+            claim = (None if queue.unit_done(jid, unit.key) is not None
+                     else queue.claim_unit(jid, unit.key, self.ident))
+            self._stage("claim", t0, jid)
             if claim is None:
                 continue
             try:
@@ -136,16 +159,22 @@ class FleetWorker:
                     self.telemetry.inc("fleet.steals")
                 if self.stall_s:
                     time.sleep(self.stall_s)   # chaos-test kill window
+                t0 = self._clock()
                 covered = (state["journal"].cover(unit)
                            if state["journal"] is not None else None)
+                self._stage("journal", t0, jid)
                 if covered is None:
                     with self.telemetry.span("fleet_unit", unit=unit.key,
                                              job=jid, ident=self.ident):
                         result = state["wsession"].run_unit(unit)
+                t0 = self._clock()
+                if covered is None:
                     if state["journal"] is not None:
                         state["journal"].put(result)
                     self.telemetry.inc("fleet.units_run")
                 state["wsession"].save_store()
+                self._stage("record", t0, jid, stage="session")
+                t0 = self._clock()
                 queue.write_unit_done(jid, unit.key, {
                     "ident": self.ident,
                     "stolen": claim == "stolen",
@@ -154,21 +183,26 @@ class FleetWorker:
                 ran = True
             finally:
                 queue.release_unit(jid, unit.key)
+            self._stage("done", t0, jid)
+        t0 = self._clock()
         complete = all(
             queue.unit_done(jid, u.key) is not None for u in state["units"]
         )
         if complete and jid not in self._completed:
             self._completed.add(jid)
             self.telemetry.inc("fleet.jobs_completed")
+        self._stage("done", t0, jid)
         return ran, complete
 
     def _close_jobs(self) -> None:
+        t0 = self._clock()
         for state in self._jobs.values():
             wsession = state["wsession"]
             wsession.save_store()
             if wsession.store is not None and hasattr(wsession.store, "close"):
                 wsession.store.close()
         self._jobs.clear()
+        self._stage("record", t0, stage="session")
 
     # -- public ----------------------------------------------------------------
     def run_once(self) -> bool:
@@ -192,12 +226,14 @@ class FleetWorker:
         deadline = None if timeout_s is None else monotonic() + timeout_s
         try:
             while True:
+                t0 = self._clock()
                 queue = self._open_queue()
                 try:
                     actionable = [
                         j for j in queue.pending_jobs()
                         if str(j["id"]) not in self._completed
                     ]
+                    self._stage("claim", t0)
                     if not actionable:
                         return completed
                     ran = False
@@ -209,7 +245,9 @@ class FleetWorker:
                             if max_jobs is not None and completed >= max_jobs:
                                 return completed
                 finally:
+                    t0 = self._clock()
                     queue.close()
+                    self._stage("claim", t0)
                 if deadline is not None and monotonic() >= deadline:
                     return completed
                 if not ran:
@@ -225,8 +263,11 @@ def collect_jobs(store_kind: str, store_path: str, qdir: str, *,
     """Owner-side collection: for every pending job whose units are fully
     journaled across this spec's shard stores, absorb the shards into the
     parent store, refresh the winners index, flip the job to ``"done"``, and
-    drop its claim/done files.  Returns the collected job ids."""
+    drop its claim/done files.  Returns the collected job ids.  With
+    telemetry on, the whole collection is one trace-only ``serve`` stage
+    (``part="collect"``, with the number of ``jobs`` collected)."""
     tel = telemetry if telemetry is not None else NULL_TELEMETRY
+    t0 = monotonic() if tel.enabled else None
     queue = JobQueue.open(store_kind, store_path, qdir, telemetry=tel)
     try:
         jobs = queue.pending_jobs()
@@ -258,4 +299,6 @@ def collect_jobs(store_kind: str, store_path: str, qdir: str, *,
         finally:
             if session.store is not None and hasattr(session.store, "close"):
                 session.store.close()
+    if t0 is not None:
+        tel.stage("serve", monotonic() - t0, part="collect", jobs=len(collected))
     return collected

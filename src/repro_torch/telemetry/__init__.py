@@ -18,8 +18,11 @@ carry the exact duration its stage clock was charged, so per-stage trace
 totals reconcile with the units' ``stage_s``.  The port traces more stages
 than the reference: ``inputs`` (the inputs' draw and copy, split out of
 ``compile``) among the measurement's, and the trace-only host stages
-``propose`` (the searcher's steps in the engine's ``drive``) and
-``session`` (``TuningSession.run``'s own work) — see
+``propose`` (the searcher's steps in the engine's ``drive``), ``session``
+(``TuningSession.run``'s own work, and a fleet worker's record of each
+unit in its shard session), ``fleet`` (a fleet worker's seeding, claims,
+journal lookups and done markers) and ``serve`` (the owner's queries and
+collect) — see
 :data:`.events.HOST_STAGES`.  Every event is stamped on the
 ``repro_torch.core.clock`` seam, ``time.perf_counter`` by default.
 

@@ -85,14 +85,33 @@ PIPELINE_STAGES = ("screen", "inputs", "compile", "time", "record")
 #: (``part="setup"``) and after the final re-measurement (``part="record"``),
 #: and ``run_matrix``'s before its units run (``part="setup"``: the unit
 #: plan, the journal) and after (``part="record"``: the merge, the store,
-#: the winners index, the record), with ``executor``.
+#: the winners index, the record), with ``executor``, and a fleet
+#: worker's shard session's record of each unit it ran (``part="record"``:
+#: the journal's ``put`` and the store's ``save_store``; when the drain
+#: ends, the shard stores' last save and close), with ``job`` and
+#: ``ident``;
+#: ``fleet`` — a fleet worker's own work around the units it runs
+#: (``serving/fleet.py`` ``FleetWorker``), with ``job`` and ``ident``:
+#: ``part="seed"`` (for each job it takes up, the job's read-only session
+#: and unit list, its shard session seeded from the parent store, its
+#: journal), ``part="claim"`` (the queue handle and its pending-job scan,
+#: each unit's done check and claim), ``part="journal"`` (the journal
+#: lookup before a unit), ``part="done"`` (the done marker, the claim's release, the job's
+#: completeness check);
+#: ``serve`` — the queue owner's side: ``part="query"`` (``best_config``:
+#: the winner lookup, the nearest scan, the enqueue on a miss; with
+#: ``status``) and ``part="collect"`` (``collect_jobs``: the queue's scan,
+#: the job's session, the shards absorbed, the journal's coverage, the
+#: store's save, the winners index, the done flip, the job's files
+#: removed; with ``jobs``).  ``fleet``, ``serve`` and the fleet's
+#: ``session`` read the clock only where the sink is on.
 #: The searchers take their split's clock reads, and the space counts its
 #: screened rows, with the sink off too: a searcher is built without a sink
 #: and its proposal runs inside ``tell``, so gating them would thread the
 #: sink through the ``Searcher`` protocol the reference shares; three
 #: ``perf_counter`` reads and a lock a screen (~0.2 µs) against a step of
 #: 0.3–10 ms is below any metric's noise
-HOST_STAGES = ("propose", "session")
+HOST_STAGES = ("propose", "session", "fleet", "serve")
 
 #: the port's matrix stages, each charged to the unit that ran it
 #: (``UnitResult.stage_s``) and absent from the reference's trace:

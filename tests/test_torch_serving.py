@@ -680,6 +680,136 @@ def test_fleet_fills_a_cuda_miss_with_the_plain_versions(tmp_path):
                          "cpu").config == hit.config
 
 
+#: a CPU job of both of the service's algorithms, several units a job
+TWO_ALGO_JOB = CPU_JOB.replace(algorithms=("rs", "ga"), design=ExperimentDesign(
+    sample_sizes=(6, 8), n_experiments=(2, 1), final_repeats=2))
+
+
+def traced_fill(tmp_path, spec, telemetry, name="fill"):
+    """The owner's miss, one in-process worker's drain, collect and the
+    owner's second query, all through one sink; returns the two answers,
+    the collected ids and the store's measurement items."""
+    path, qdir = str(tmp_path / f"{name}.sqlite"), str(tmp_path / f"{name}_queue")
+    store = make_store("sqlite", path)
+    queue = JobQueue(store, "sqlite", path, qdir, telemetry=telemetry)
+    kernel, x, y = spec.kernel, spec.backend_kwargs["x"], spec.backend_kwargs["y"]
+    miss = best_config(store, kernel, x, y, "cpu", queue=queue, enqueue_spec=spec,
+                       telemetry=telemetry)
+    assert FleetWorker("sqlite", path, qdir, ident="w1", telemetry=telemetry).drain() == 1
+    collected = collect_jobs("sqlite", path, qdir, telemetry=telemetry)
+    hit = best_config(store, kernel, x, y, "cpu", telemetry=telemetry)
+    items = dict(store.items())
+    store.close()
+    return miss, hit, collected, items
+
+
+def plain_scan(items: dict, cache_key: str):
+    """The least finite ``|final`` value under the job's cache key, ties on
+    key, and its config: a Python scan, apart from the store's SQL and the
+    winners index."""
+    key, value = min(((k, v) for k, v in items.items()
+                      if k.startswith(f"{cache_key}/") and "|final" in k and v < float("inf")),
+                     key=lambda kv: (kv[1], kv[0]))
+    pairs = key[len(cache_key):].split("|")[1].split(",")
+    return {k: int(v) for k, v in (p.split("=") for p in pairs)}, value
+
+
+def test_a_traced_fill_has_fleet_and_serve_stages(tmp_path):
+    """The worker's own work is ``fleet`` stages (its sessions for the job
+    seeded, claims, journal lookups, done markers) and its shard session's
+    record of each unit (the journal's put, the store's save) ``session``
+    stages, the owner's ``serve`` stages (the miss, collect, the hit);
+    every stage interval of the trace is disjoint from every other, and
+    none falls inside a unit the worker ran."""
+    from repro_torch.telemetry import Telemetry, read_events
+    from repro_torch.telemetry.events import PIPELINE_STAGES
+
+    path = str(tmp_path / "trace.jsonl")
+    with ticking_clock():
+        tel = Telemetry(path)
+        miss, hit, collected, _ = traced_fill(tmp_path, TWO_ALGO_JOB, tel)
+        tel.close()
+    assert miss.status == "miss" and collected == [miss.job_id] and hit.status == "hit"
+    events = read_events(path)
+    stages = [e for e in events if e["ev"] == "stage"]
+    fleet = [e for e in stages if e["stage"] == "fleet"]
+    serve = [e for e in stages if e["stage"] == "serve"]
+    units = [e for e in events if e["ev"] == "end" and e.get("span") == "fleet_unit"]
+    assert len(units) == len({e["unit"] for e in units}) >= 3
+    session = [e for e in stages if e["stage"] == "session"]
+    assert {e["part"] for e in fleet} == {"seed", "claim", "journal", "done"}
+    assert {e["ident"] for e in fleet + session} == {"w1"}
+    assert {e["job"] for e in fleet} == {miss.job_id, None}
+    assert [e["job"] for e in fleet if e["part"] == "seed"] == [miss.job_id]
+    # each unit's journal lookup before it runs; its put and store save
+    # after; the shard stores' last save and close when the drain ends
+    assert [e["job"] for e in fleet if e["part"] == "journal"] == [miss.job_id] * len(units)
+    assert [(e["part"], e["job"]) for e in session] == (
+        [("record", miss.job_id)] * len(units) + [("record", None)])
+    assert [(e["part"], e.get("status"), e.get("jobs")) for e in serve] == [
+        ("query", "miss", None), ("collect", None, 1), ("query", "hit", None)]
+
+    def interval(e):
+        return e["t"] - e["dur"], e["t"]
+
+    spans = sorted(interval(e) for e in stages)
+    for (s0, e0), (s1, e1) in zip(spans, spans[1:]):
+        assert e0 <= s1, ((s0, e0), (s1, e1))
+    for e in fleet + serve + session:
+        a0, a1 = interval(e)
+        for u in units:
+            b0, b1 = interval(u)
+            assert a1 <= b0 or b1 <= a0, (e, u)
+    measured = [e for e in stages if e["stage"] in PIPELINE_STAGES]
+    assert measured and all(any(interval(u)[0] <= interval(e)[0] and interval(e)[1]
+                                <= interval(u)[1] for u in units) for e in measured)
+
+
+def test_a_fill_serves_the_serial_runs_winner_and_the_plain_scan(tmp_path):
+    """The fleet's served config and value are the winner a serial
+    ``run_matrix`` of the same spec indexes, and the plain scan's answer
+    over the fleet's store."""
+    with ticking_clock():
+        miss, hit, _, items = traced_fill(tmp_path, TWO_ALGO_JOB, None)
+        serial = TuningSession(TWO_ALGO_JOB.replace(
+            store="json", store_path=str(tmp_path / "serial.json")))
+        serial.run_matrix()
+    rec = lookup_winner(make_store("json", serial.spec.store_path), TWO_ALGO_JOB.kernel,
+                        64, 128, "cpu")
+    assert (hit.config, hit.value) == (rec.config, rec.value)
+    assert (hit.config, hit.value) == plain_scan(items, serial.cache_key)
+    assert hit.matched_key == rec.key and hit.fingerprint == rec.fingerprint
+
+
+def test_an_untraced_fill_reads_no_clock_for_its_stages(tmp_path, monkeypatch):
+    """With the null sink the fleet and the serve stages build nothing and
+    read no clock, and the fill's store values are the traced fill's."""
+    from repro_torch.serving import api as serve_api
+    from repro_torch.serving import fleet as serve_fleet
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry.null import NullTelemetry
+
+    def no_read():
+        raise AssertionError("a stage read the clock with the sink off")
+
+    built = []
+    monkeypatch.setattr(serve_api, "monotonic", no_read)
+    monkeypatch.setattr(serve_fleet, "monotonic", no_read)
+    monkeypatch.setattr(NullTelemetry, "stage",
+                        lambda self, name, dur, **attrs: built.append(name))
+    with ticking_clock():
+        miss, hit, _, off = traced_fill(tmp_path, TWO_ALGO_JOB, None, "off")
+    assert hit.status == "hit" and built == []
+    monkeypatch.undo()
+    with ticking_clock():
+        tel = Telemetry(str(tmp_path / "on.jsonl"))
+        _, hit_on, _, on = traced_fill(tmp_path, TWO_ALGO_JOB, tel, "on")
+        tel.close()
+    values = {k: v for k, v in off.items() if not k.startswith("__")}
+    assert values and values == {k: v for k, v in on.items() if not k.startswith("__")}
+    assert (hit.config, hit.value) == (hit_on.config, hit_on.value)
+
+
 def test_worker_raises_on_a_cuda_job_without_a_card(tmp_path):
     """The worker CLI in a process of its own: a job on the card, on a host
     with none, fails with the cause — it never runs the plain versions in
