@@ -11,9 +11,10 @@ So with budget S: S-10 random (constrained) training samples are measured
 ranks a large candidate pool, and the 10 best-predicted configs are actually
 measured (a second batch); the best of those 10 is the result.  The
 candidate pool is a constraint-valid random subsample of the space
-(pool_size=16384 by default — predicting over all 2.1M configs with a
-pure-python forest would only change which near-tied candidate wins; the
-reference's own deviation from the paper).
+(pool_size=16384 by default, the reference's own deviation from the paper:
+the batched forest's prediction takes time in proportion to the pool, and
+predicting over all 2.1M configs would only change which near-tied
+candidate wins).
 """
 
 from __future__ import annotations

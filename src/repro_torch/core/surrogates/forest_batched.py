@@ -5,7 +5,9 @@ Autotuning search spaces are small-cardinality integer grids (here: 16^3 x
 8^3), so tree splits can be found with *histograms* (bincount per feature
 value) instead of per-node sorts — and, crucially, ALL trees of ALL forests
 of an experiment cell can be grown level-synchronously in one numpy pass
-(the LightGBM trick, applied across the forest/experiment axes).
+(the LightGBM trick, applied across the forest/experiment axes).  They
+predict a cache-sized block of trees at a time, each block walking only as
+many levels as its deepest tree grew.
 
 This replaces the per-node recursive CART in ``forest.py`` for the ``rf``
 searcher and the paper's experiment matrix.  ``forest.py`` remains the
@@ -20,8 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 
-#: forests descended together in one predict pass (bounds its gather arrays)
-_CHUNK_FORESTS = 32
+#: (tree, row) pairs a block of the descent holds: its index arrays stay in cache
+_BLOCK = 1 << 16
 
 
 class BatchedForest:
@@ -55,7 +57,9 @@ class BatchedForest:
         self.right: np.ndarray | None = None    # (M,) int64
         self.value: np.ndarray | None = None    # (M,) float64
         self.root: np.ndarray | None = None     # (B,) roots, B = G * T
+        self.depth: np.ndarray | None = None    # (B,) each tree's deepest leaf
         self.n_forests = 0
+        self._frozen = False
 
     # ------------------------------------------------------------------ fit
     def fit(
@@ -114,6 +118,8 @@ class BatchedForest:
         # frontier state: every active sample points at a frontier slot
         leaf = np.repeat(np.arange(B, dtype=np.int64), n)  # frontier slot per sample
         frontier_nodes = np.arange(B, dtype=np.int64)       # node id per slot
+        frontier_tree = np.arange(B, dtype=np.int64)        # tree per slot
+        tree_depth = np.zeros(B, dtype=np.int64)
         active = np.ones(B * n, dtype=bool)
         depth = 0
         min_leaf = self.min_samples_leaf
@@ -177,6 +183,8 @@ class BatchedForest:
             self._scatter(thresh, nodes_split, best_thr[split].astype(np.int32))
             self._scatter(left, nodes_split, kids[0::2])
             self._scatter(right, nodes_split, kids[1::2])
+            tree_depth[frontier_tree[split]] = depth + 1
+            frontier_tree = np.repeat(frontier_tree[split], 2)
 
             # route samples: new frontier slot = 2*rank(split leaf) (+1 right)
             slot_of_leaf = np.full(F, -1, dtype=np.int64)
@@ -210,6 +218,8 @@ class BatchedForest:
         self.left = np.concatenate(left)
         self.right = np.concatenate(right)
         self.value = np.concatenate(value)
+        self.depth = tree_depth
+        self._frozen = False
         return self
 
     @staticmethod
@@ -222,56 +232,74 @@ class BatchedForest:
                 c[idx[m] - offsets[i]] = vals[m]
 
     def _freeze_leaves(self) -> None:
-        """Make leaves self-looping so predict needs no masking:
-        leaf.left = leaf.right = leaf, leaf.feature = 0, leaf.thresh = big."""
-        if getattr(self, "_frozen", False):
+        """Make leaves self-looping so predict needs no masking: leaf.left =
+        leaf, leaf.feature = 0, leaf.thresh = big.  ``fit`` allocates a
+        split's children side by side, so an inner node's right child is
+        ``left + 1`` and one step of the descent is ``left + (x > thresh)``."""
+        if self._frozen:
             return
         is_leaf = self.left < 0
-        ids = np.arange(len(self.left), dtype=np.int64)
-        self.left = np.where(is_leaf, ids, self.left)
-        self.right = np.where(is_leaf, ids, self.right)
+        if not np.array_equal(self.right[~is_leaf], self.left[~is_leaf] + 1):
+            raise RuntimeError("an inner node's right child is not left + 1")
+        ids = np.arange(len(self.left), dtype=np.intp)
+        self.left = np.where(is_leaf, ids, self.left).astype(np.intp, copy=False)
         self.thresh = np.where(is_leaf, np.int32(2**30), self.thresh)
         self.feature = np.where(is_leaf, np.int32(0), self.feature)
-        self._is_leaf = is_leaf
         self._frozen = True
 
     # -------------------------------------------------------------- predict
     def predict(self, Xp: np.ndarray) -> np.ndarray:
         """Xp: (P, d) shared pool or (G, P, d) per-forest pools -> (G, P).
 
-        Level-synchronous descent with self-looping leaves: every iteration
-        is 4 flat gathers + a compare over (chunk*T*P,) arrays — no boolean
-        mask bookkeeping.  Early-exits when the whole chunk is at leaves.
+        The trees descend a block at a time, ``max(1, _BLOCK // P)`` of them
+        over all P rows, so a block's index arrays stay in cache.  A block
+        walks exactly its deepest tree's levels (``fit`` records each tree's
+        depth) and a step is ``left + (x > thresh)``: four flat gathers, no
+        select, leaves looping on themselves.  The leaf values of whole
+        forests (as many as a block holds, at least one) are gathered into
+        one ``(k, T, P)`` array and averaged over T by the reference's own
+        ``mean(axis=1)``, so the predictions are the reference's bit for bit.
         """
         if self.feature is None:
             raise RuntimeError("call fit first")
         self._freeze_leaves()
         Xp = np.asarray(Xp)
-        shared = Xp.ndim == 2
         G, T = self.n_forests, self.n_estimators
-        P = Xp.shape[-2]
-        d = Xp.shape[-1]
-        out = np.zeros((G, P), dtype=np.float64)
-        for g0 in range(0, G, _CHUNK_FORESTS):
-            g1 = min(G, g0 + _CHUNK_FORESTS)
-            nB = (g1 - g0) * T
-            node = np.repeat(self.root[g0 * T : g1 * T], P)  # (nB*P,)
-            if shared:
-                xp_flat = np.ascontiguousarray(Xp, dtype=np.int32).reshape(-1)
-                base = np.tile(np.arange(P, dtype=np.int64) * d, nB)
-            else:
-                xp_flat = (
-                    np.ascontiguousarray(Xp[g0:g1], dtype=np.int32).reshape(-1)
-                )
-                fidx = np.repeat(np.arange(g1 - g0, dtype=np.int64), T * P)
-                base = fidx * (P * d) + np.tile(np.arange(P, dtype=np.int64) * d, nB)
-            for _ in range(self.max_depth + 1):
-                f = self.feature[node]
-                xv = xp_flat[base + f]
-                go_left = xv <= self.thresh[node]
-                node = np.where(go_left, self.left[node], self.right[node])
-                if self._is_leaf[node].all():
-                    break
-            preds = self.value[node].reshape(g1 - g0, T, P)
-            out[g0:g1] = preds.mean(axis=1)
+        P, d = Xp.shape[-2:]
+        # the pool column by column: row r's value of feature f is
+        # xT[f * P + r], in forest g's own pool xT[(g * d + f) * P + r]
+        xT = np.ascontiguousarray(np.swapaxes(Xp, -1, -2), dtype=np.int32).reshape(-1)
+        fP = self.feature.astype(np.intp) * P
+        per_block = max(1, _BLOCK // max(P, 1))
+        k = max(1, per_block // T)            # whole forests a group
+        step = min(per_block, k * T)          # trees a block
+        rows = np.tile(np.arange(P, dtype=np.intp), step)
+        node, idx = np.empty(step * P, np.intp), np.empty(step * P, np.intp)
+        xv, th = np.empty(step * P, np.int32), np.empty(step * P, np.int32)
+        go = np.empty(step * P, bool)
+        out = np.empty((G, P))
+        for g0 in range(0, G, k):
+            g1 = min(G, g0 + k)
+            vals = np.empty(((g1 - g0) * T, P))
+            flat = vals.reshape(-1)
+            for b0 in range(g0 * T, g1 * T, step):
+                b1 = min(g1 * T, b0 + step)
+                m = (b1 - b0) * P
+                off = rows[:m]
+                if Xp.ndim == 3:
+                    off = off + np.repeat(np.arange(b0, b1) // T * (d * P), P)
+                nd, ix, x, t, right = node[:m], idx[:m], xv[:m], th[:m], go[:m]
+                nd[:] = np.repeat(self.root[b0:b1], P)
+                # every index is in range: "wrap" lets take fill `out` unbuffered
+                for _ in range(self.depth[b0:b1].max()):
+                    np.take(fP, nd, out=ix, mode="wrap")
+                    ix += off
+                    np.take(xT, ix, out=x, mode="wrap")
+                    np.take(self.thresh, nd, out=t, mode="wrap")
+                    np.greater(x, t, out=right)
+                    np.take(self.left, nd, out=ix, mode="wrap")
+                    np.add(ix, right, out=nd)
+                lo = (b0 - g0 * T) * P
+                np.take(self.value, nd, out=flat[lo : lo + m], mode="wrap")
+            out[g0:g1] = vals.reshape(g1 - g0, T, P).mean(axis=1)
         return out

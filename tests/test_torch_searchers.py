@@ -152,18 +152,91 @@ def _toy(X):
     return (X[:, 0] - 8.0) ** 2 + 3.0 * X[:, 3] + 0.5 * X[:, 1]
 
 
-@pytest.mark.parametrize("n_forests", [1, 3])
-def test_batched_forest_predicts_what_the_reference_predicts(n_forests):
+#: forests, training rows, pools as (rows, one per forest), trees, max_depth,
+#: targets.  The descent's blocks hold max(1, 2**16 // P) trees: one at
+#: P = 65,536, several with a partial last block at P = 2,048 and 16,384,
+#: whole forests at P = 1 and 7 (where numpy's mean over T is pairwise);
+#: 33 forests cross the 32 a chunk the descent once took; 390 rows are the
+#: paper's S = 400; equal targets grow single-leaf trees; max_depth cuts.
+_FOREST_CASES = {
+    "1": (1, 80, ((500, False), (64, True)), 30, 32, "toy"),
+    "3": (3, 80, ((500, False), (64, True)), 30, 32, "toy"),
+    "rf-100": (1, 90, ((16384, False),), 100, 32, "toy"),
+    "p65536": (1, 15, ((65536, False),), 10, 32, "toy"),
+    "g33-p1": (33, 15, ((1, False), (1, True)), 30, 32, "toy"),
+    "g33-p7": (33, 15, ((7, False), (7, True)), 30, 32, "toy"),
+    "g33-p2048": (33, 15, ((2048, False),), 30, 32, "toy"),
+    "g3-p16384-per-forest": (3, 15, ((16384, True),), 30, 32, "toy"),
+    "matrix-s25": (4, 15, ((2048, False),), 100, 32, "toy"),
+    "matrix-s50": (2, 40, ((2048, False), (2048, True)), 100, 32, "toy"),
+    "n2": (3, 2, ((1, False), (7, True), (2048, False)), 30, 32, "toy"),
+    "n390": (1, 390, ((2048, False), (7, False)), 100, 32, "toy"),
+    "single-leaf": (3, 15, ((7, False), (2048, True)), 30, 32, "equal"),
+    "max-depth": (3, 90, ((7, True), (2048, False)), 30, 3, "toy"),
+}
+
+
+def _forest_data(rng, space, n_forests, n_train, targets):
+    X = np.stack([space.sample_indices(rng, n_train) for _ in range(n_forests)])
+    if targets == "equal":
+        return X, np.full((n_forests, n_train), 1.5)
+    return X, np.stack([_toy(x) + rng.normal(0, 0.05, len(x)) for x in X])
+
+
+@pytest.mark.parametrize("case", list(_FOREST_CASES))
+def test_batched_forest_predicts_what_the_reference_predicts(case):
+    n_forests, n_train, pools, trees, max_depth, targets = _FOREST_CASES[case]
     space = paper_space(constrained=False)
     rng = np.random.default_rng(1)
-    X = np.stack([space.sample_indices(rng, 80) for _ in range(n_forests)])
-    y = np.stack([_toy(x) + rng.normal(0, 0.05, len(x)) for x in X])
-    pool = space.sample_indices(rng, 500)
-    ours = BatchedForest(space.cardinalities, n_estimators=30, seed=4).fit(X, y)
-    ref = RefBatchedForest(space.cardinalities, n_estimators=30, seed=4).fit(X, y)
-    assert np.array_equal(ours.predict(pool), ref.predict(pool))
-    per_pool = np.stack([space.sample_indices(rng, 64) for _ in range(n_forests)])
-    assert np.array_equal(ours.predict(per_pool), ref.predict(per_pool))
+    X, y = _forest_data(rng, space, n_forests, n_train, targets)
+    kw = dict(n_estimators=trees, max_depth=max_depth, seed=4)
+    ours = BatchedForest(space.cardinalities, **kw).fit(X, y)
+    ref = RefBatchedForest(space.cardinalities, **kw).fit(X, y)
+    for rows, per_forest in pools:
+        if per_forest:
+            pool = np.stack([space.sample_indices(rng, rows) for _ in range(n_forests)])
+        else:
+            pool = space.sample_indices(rng, rows)
+        assert np.array_equal(ours.predict(pool), ref.predict(pool)), (rows, per_forest)
+
+
+@pytest.mark.parametrize("targets,max_depth", [("toy", 32), ("equal", 32), ("toy", 3)],
+                         ids=["grown", "single-leaf", "max-depth"])
+def test_batched_forest_lays_siblings_side_by_side_and_records_depth(targets, max_depth):
+    """``fit`` puts a split's right child at ``left + 1`` (the descent's step
+    relies on it) and records each tree's depth, its longest root-to-leaf
+    path; a refit after a prediction predicts the new fit."""
+    space = paper_space(constrained=False)
+    rng = np.random.default_rng(2)
+    X, y = _forest_data(rng, space, 3, 90, targets)
+    forest = BatchedForest(space.cardinalities, n_estimators=30, max_depth=max_depth, seed=4)
+    with pytest.raises(RuntimeError, match="call fit first"):
+        forest.predict(X[0])
+    forest.fit(X, y)
+    inner = forest.left >= 0
+    assert np.array_equal(forest.right[inner], forest.left[inner] + 1)
+    longest = []
+    for root in forest.root:
+        stack, deepest = [(root, 0)], 0
+        while stack:
+            node, level = stack.pop()
+            if forest.left[node] < 0:
+                deepest = max(deepest, level)
+            else:
+                stack += [(forest.left[node], level + 1), (forest.right[node], level + 1)]
+        longest.append(deepest)
+    assert forest.depth.tolist() == longest
+    if targets == "equal":
+        assert max(longest) == 0
+    elif max_depth == 3:
+        assert max(longest) == 3
+    else:
+        assert max(longest) > 3
+    pool = space.sample_indices(rng, 300)
+    forest.predict(pool)
+    X2, y2 = _forest_data(rng, space, 3, 40, "toy")
+    ref = RefBatchedForest(space.cardinalities, n_estimators=30, max_depth=max_depth, seed=4)
+    assert np.array_equal(forest.fit(X2, y2).predict(pool), ref.fit(X2, y2).predict(pool))
 
 
 def test_forest_against_batched_forest():
